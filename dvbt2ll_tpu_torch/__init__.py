@@ -1,0 +1,19 @@
+"""dvbt2ll_tpu_torch: the DVB-T2 transmit chain in PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper.
+
+A port of ``dvbt2ll_tpu`` (JAX on a TPU), which stays the reference.  The
+host-side planner is shared, not copied: ``_host`` loads the JAX
+package's numpy modules without importing jax.  This package imports
+``torch`` and never ``jax``.
+"""
+from ._host.io import synthetic_ts
+from .config import T2Config, named_config, vv009_config
+from .convert import plan_tensors
+from .pipeline import Transmitter, bb_and_fec, transmit_step_iq_planar
+from .plan import TransmitPlan, build_plan, min_batch_frames
+
+__all__ = [
+    "T2Config", "named_config", "vv009_config", "Transmitter",
+    "TransmitPlan", "build_plan", "min_batch_frames", "plan_tensors",
+    "bb_and_fec", "transmit_step_iq_planar", "synthetic_ts",
+]

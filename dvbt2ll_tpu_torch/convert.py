@@ -1,0 +1,120 @@
+"""From a host plan to device tensors.
+
+A transmitter has no weights: its state is the plan's constant tables
+plus the stream carries.  ``plan_tensors`` uploads any ``TransmitPlan``'s
+numpy constants once, whether the port built the plan or
+``dvbt2ll_tpu.plan.build_plan`` did; the carries of a JAX checkpoint are
+numpy and load unchanged (``Transmitter.load_state``).  The tables are
+the JAX package's ``_plp_consts``/``_consts``/``_planar_consts``, which it
+bakes into the compiled step instead.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .ops.ifft import N1, factor_tensors
+from .ops.ldpc import LdpcSchedule, ldpc_schedule
+
+
+@dataclasses.dataclass
+class PlpTensors:
+    """One PLP's device constants, beside its host ``PlpPlan``."""
+
+    pp: object                      # host PlpPlan
+    headers_b: torch.Tensor         # (F, 10) u8, packed BB headers
+    crc_matrix: torch.Tensor        # (1496, 8) f32, packet CRC-8 over GF(2)
+    scramble_b: torch.Tensor        # (kbch / 8,) u8, packed BB scrambler
+    bch_matrix: torch.Tensor        # (kbch, bch parity) f32
+    mapper_perm: torch.Tensor       # (cell_size, mod) i64 bit interleave
+    inband_b: Optional[torch.Tensor]  # packed in-band field, or None
+    ldpc: LdpcSchedule
+
+
+@dataclasses.dataclass
+class PlanTensors:
+    """A plan's device constants for the planar step."""
+
+    plan: object                    # host TransmitPlan
+    plps: list                      # [PlpTensors]
+    l1pre_re: torch.Tensor          # (1840,) f32
+    l1pre_im: torch.Tensor
+    l1post_re: torch.Tensor         # (t2_frames, l1post cells) f32
+    l1post_im: torch.Tensor
+    dummy_re: torch.Tensor          # (dummy cells,) f32
+    dummy_im: torch.Tensor
+    p1_re: torch.Tensor             # (2048,) f32
+    p1_im: torch.Tensor
+    grid_t: torch.Tensor            # (S, N2, N1) i64 gather into seq
+    pilot_t: torch.Tensor           # (S, N2, N1) f32
+    eq_t: Optional[torch.Tensor]    # (1, N2, N1) f32 inverse sinc, or None
+    ifft: tuple                     # factor_tensors(fft, scale)
+
+
+def _t(a, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+
+
+def _plp_tensors(pp, device) -> PlpTensors:
+    cfg = pp.cfg
+    return PlpTensors(
+        pp=pp,
+        headers_b=_t(np.packbits(np.asarray(pp.headers, np.uint8), axis=1),
+                     np.uint8, device),
+        crc_matrix=_t(pp.crc_matrix, np.float32, device),
+        scramble_b=_t(np.packbits(np.asarray(pp.scramble, np.uint8)),
+                      np.uint8, device),
+        bch_matrix=_t(pp.bch_matrix, np.float32, device),
+        mapper_perm=_t(np.asarray(pp.mapper_perm).reshape(
+            cfg.cell_size, cfg.mod_bits), np.int64, device),
+        inband_b=(None if pp.bb.inband_bits is None
+                  else _t(np.packbits(np.asarray(pp.bb.inband_bits,
+                                                 np.uint8)),
+                          np.uint8, device)),
+        ldpc=ldpc_schedule(pp.ldpc_cols, cfg.nbch, cfg.ldpc_parity_bits,
+                           cfg.q_ldpc, device),
+    )
+
+
+def plan_tensors(plan, device) -> PlanTensors:
+    """Upload a plan's constants to ``device`` for the planar step."""
+    cfg = plan.cfg
+    fft = cfg.fft_points
+    n2 = fft // N1
+    # natural (S, fft) -> transposed (S, n2, N1): [s, k2, k1] = bin n2*k1+k2
+    tidx = n2 * np.arange(N1)[None, :] + np.arange(n2)[:, None]
+    l1pre = np.asarray(plan.l1pre, np.complex64)
+    l1post = np.asarray(plan.l1post_all, np.complex64)
+    dummy = np.asarray(plan.dummy, np.complex64)
+    p1 = np.asarray(plan.p1, np.complex64)
+    # one trailing zero cell absorbs every pilot/null position (-1)
+    seq_len = (l1pre.size + l1post.shape[1]
+               + sum(pp.cfg.stream_cells for pp in plan.plps)
+               + dummy.size + cfg.n_fc - cfg.c_fc + 1)
+    src = np.asarray(plan.grid_src)
+    gather = np.where(src >= 0, src, seq_len - 1)[:, tidx]
+    eq_t = None
+    if plan.eq is not None:
+        eq = np.broadcast_to(np.asarray(plan.eq, np.float32), (1, fft))
+        eq_t = _t(eq[:, tidx], np.float32, device)
+    return PlanTensors(
+        plan=plan,
+        plps=[_plp_tensors(pp, device) for pp in plan.plps],
+        l1pre_re=_t(l1pre.real, np.float32, device),
+        l1pre_im=_t(l1pre.imag, np.float32, device),
+        l1post_re=_t(l1post.real, np.float32, device),
+        l1post_im=_t(l1post.imag, np.float32, device),
+        dummy_re=_t(dummy.real, np.float32, device),
+        dummy_im=_t(dummy.imag, np.float32, device),
+        p1_re=_t(p1.real, np.float32, device),
+        p1_im=_t(p1.imag, np.float32, device),
+        grid_t=_t(gather, np.int64, device),
+        pilot_t=_t(np.asarray(plan.pilot_plane)[:, tidx], np.float32,
+                   device),
+        eq_t=eq_t,
+        # 1/N of the inverse transform times the chain's N * ofdm_norm
+        ifft=factor_tensors(fft, cfg.ofdm_normalization, device),
+    )

@@ -1,0 +1,356 @@
+"""The DVB-T2 transmit chain on torch tensors: TS bytes -> baseband IQ.
+
+The counterpart of ``dvbt2ll_tpu/pipeline.py``, function for function, for
+the planar tail (1K-8K FFTs with a guard interval of whole 128-sample
+rows).  PyTorch runs eagerly: each function is the JAX one's body with
+torch ops, and the plan's constants come as device tensors that
+``convert.plan_tensors`` uploads once (the JAX package bakes them into
+its compiled step instead).  The LDPC parity of a CUDA tensor runs the
+hand-written kernel of ``ops/ldpc.py``; a CPU tensor takes its plain
+twin.
+"""
+from __future__ import annotations
+
+import math
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ._bits import gf2_matmul, packbits, unpackbits
+from ._host.observability import TxCounters
+from .config import T2Config
+from .convert import PlanTensors, PlpTensors, plan_tensors
+from .ops.ifft import ifft_gi_einsum, set_full_fp32_matmul, supported
+from .ops.ldpc import qc_ldpc_parity
+from .plan import build_plan, min_batch_frames
+
+
+def _pad_to(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Zero-pad a 1-D tensor at its end to length n."""
+    if x.shape[0] > n:
+        raise ValueError(f"{x.shape[0]} bytes do not fit in {n}")
+    return torch.cat([x, x.new_zeros(n - x.shape[0])])
+
+
+def bb_and_fec(pt: PlpTensors, ts_padded: torch.Tensor) -> torch.Tensor:
+    """TS bytes (187 carry + fresh) -> LDPC frame bits (F, frame_bits) u8.
+
+    BB framing stays in the byte domain: the TS -> data-field map is
+    affine, so it is reshapes and slices.  NORMAL mode replaces each sync
+    byte with the CRC-8 of the packet before it (a GF(2) product), HIEFF
+    drops the sync column, in-band frames carry the static in-band field.
+    Then scrambling, BCH (a GF(2) product) and LDPC parity."""
+    pp = pt.pp
+    cfg = pp.cfg
+    bb = pp.bb
+    f, p = pp.fec_frames, pp.n_packets
+    nfresh = ts_padded.shape[0] - 187
+
+    if bb.hieff:
+        stream_b = ts_padded[187:].reshape(p, 188)[:, 1:].reshape(-1)
+    elif p == 0:
+        # no sync slot in the window: the payload passes unmodified
+        stream_b = ts_padded[187:]
+    else:
+        # o = fresh-stream index of the first sync slot; sync slot i sits
+        # at fresh byte o + 188 i and its CRC covers the 187 bytes before
+        # it: the carry window's tail for i = 0, packet row i - 1 after
+        o = bb.sync_offset
+        aligned = _pad_to(ts_padded[187 + o:], p * 188).reshape(p, 188)
+        pkt_b = torch.cat([ts_padded[o:o + 187][None], aligned[:-1, 1:]],
+                          dim=0)
+        crc = gf2_matmul(unpackbits(pkt_b, dim=1), pt.crc_matrix)
+        groups = torch.cat([packbits(crc, dim=1), aligned[:, 1:]],
+                           dim=1).reshape(-1)
+        if o:
+            stream_b = torch.cat([ts_padded[187:187 + o], groups])[:nfresh]
+        else:
+            stream_b = groups[:nfresh]
+
+    kbch_b = cfg.kbch // 8
+    if not bb.inband:
+        df = stream_b.reshape(f, kbch_b - 10)
+        kb_bytes = torch.cat([pt.headers_b, df], dim=1)
+    else:
+        # first frame of each fec_blocks group: 13 fewer payload bytes,
+        # then the 104-bit in-band field
+        k = cfg.fec_blocks
+        b = f // k
+        d_bytes = kbch_b - 10
+        groups = stream_b.reshape(b, k * d_bytes - 13)
+        hdrs = pt.headers_b.reshape(b, k, 10)
+        ib = pt.inband_b[None, :].expand(b, -1)
+        kb0 = torch.cat([hdrs[:, 0], groups[:, :d_bytes - 13], ib], dim=1)
+        rest = groups[:, d_bytes - 13:].reshape(b, k - 1, d_bytes)
+        kbr = torch.cat([hdrs[:, 1:], rest], dim=2)
+        kb_bytes = torch.cat([kb0[:, None], kbr], dim=1).reshape(f, kbch_b)
+
+    kbch_bits = unpackbits(kb_bytes ^ pt.scramble_b, dim=1)   # (F, kbch)
+    bch_par = gf2_matmul(kbch_bits, pt.bch_matrix)
+    nbch_bits = torch.cat([kbch_bits, bch_par], dim=1)        # (F, nbch)
+    return torch.cat([nbch_bits, qc_ldpc_parity(pt.ldpc, nbch_bits)], dim=1)
+
+
+def map_cells_planes(pt: PlpTensors, frame_bits: torch.Tensor):
+    """LDPC frames -> constellation cell planes ((F, cell), (F, cell)) f32.
+
+    One bit-interleave gather, then the closed form of the gray-coded
+    square QAM: per axis A = (2^h - 1) - 2 G, with G the packed prefix
+    XOR of the axis bits (EN 302 755 section 6.2), then rotation and the
+    cyclic Q delay of one cell."""
+    cfg = pt.pp.cfg
+    mod = cfg.mod_bits
+    h = mod // 2
+    cell_bits = frame_bits[:, pt.mapper_perm]                 # (F, CS, mod)
+
+    def axis_level(bv):  # (F, CS, h) u8 bits, most significant first
+        acc = bv[..., 0]
+        g = acc
+        for k in range(1, h):
+            acc = acc ^ bv[..., k]
+            g = (g << 1) | acc
+        return float((1 << h) - 1) - 2.0 * g.to(torch.float32)
+
+    norm = float(np.sqrt({2: 2.0, 4: 10.0, 6: 42.0, 8: 170.0}[mod]))
+    i_level = axis_level(cell_bits[..., 0::2]) * (1.0 / norm)
+    q_level = axis_level(cell_bits[..., 1::2]) * (1.0 / norm)
+    if cfg.rotation:
+        ang = math.radians(cfg.rotation_angle_deg)
+        cos_t, sin_t = math.cos(ang), math.sin(ang)
+        i_rot = i_level * cos_t - q_level * sin_t
+        q_rot = i_level * sin_t + q_level * cos_t
+        return i_rot, torch.roll(q_rot, 1, dims=1)
+    return i_level, q_level
+
+
+def map_cells(pt: PlpTensors, frame_bits: torch.Tensor) -> torch.Tensor:
+    """LDPC frames -> constellation cells (F, cell_size) complex64."""
+    return torch.complex(*map_cells_planes(pt, frame_bits))
+
+
+def _as_windows(plan, ts_padded) -> List[torch.Tensor]:
+    ws = (list(ts_padded) if isinstance(ts_padded, (list, tuple))
+          else [ts_padded])
+    if len(ws) != len(plan.plps):
+        raise ValueError(f"{len(ws)} windows for {len(plan.plps)} PLPs")
+    return ws
+
+
+def transmit_step_iq_planar(tp: PlanTensors, ts_padded,
+                            frame_idx0: int) -> torch.Tensor:
+    """Padded TS windows (one per PLP) -> (B, samples, 2) f32 I/Q.
+
+    Cells, frame grids and the OFDM tail stay separate re/im planes.  The
+    frame builder's one gather lands straight in the 4-step IFFT's
+    transposed (S, N2, 128) layout, so the tail's rows come out in sample
+    order and the guard interval is a row copy (ops/ifft.py)."""
+    plan = tp.plan
+    cfg = plan.cfg
+    b = plan.batch_frames
+
+    res, ims = [], []
+    for pt, w in zip(tp.plps, _as_windows(plan, ts_padded)):
+        i_p, q_p = map_cells_planes(pt, bb_and_fec(pt, w))
+        res.append(i_p.reshape(b, pt.pp.cfg.stream_cells))
+        ims.append(q_p.reshape(b, pt.pp.cfg.stream_cells))
+    pay_re = torch.cat(res, dim=1)
+    pay_im = torch.cat(ims, dim=1)
+
+    idx = torch.arange(frame_idx0, frame_idx0 + b,
+                       device=pay_re.device) % cfg.t2_frames
+    zeros = pay_re.new_zeros(b, cfg.n_fc - cfg.c_fc + 1)
+    seq_re = torch.cat([tp.l1pre_re.expand(b, -1), tp.l1post_re[idx],
+                        pay_re, tp.dummy_re.expand(b, -1), zeros], dim=1)
+    seq_im = torch.cat([tp.l1pre_im.expand(b, -1), tp.l1post_im[idx],
+                        pay_im, tp.dummy_im.expand(b, -1), zeros], dim=1)
+
+    g_re = seq_re[:, tp.grid_t] + tp.pilot_t                # (B, S, n2, N1)
+    g_im = seq_im[:, tp.grid_t]
+    if tp.eq_t is not None:
+        g_re = g_re * tp.eq_t
+        g_im = g_im * tp.eq_t
+
+    body_re, body_im = ifft_gi_einsum(
+        g_re, g_im, cfg.fft_points, cfg.guard_samples,
+        cfg.ofdm_normalization, tp.ifft)
+    out_re = torch.cat([tp.p1_re.expand(b, -1), body_re.reshape(b, -1)],
+                       dim=1)
+    out_im = torch.cat([tp.p1_im.expand(b, -1), body_im.reshape(b, -1)],
+                       dim=1)
+    return torch.stack([out_re, out_im], dim=-1)
+
+
+def select_step_iq(cfg: T2Config):
+    """The step function for ``cfg``: the planar tail where ``supported``
+    holds.  Other geometries (16K/32K, guard intervals under 128 samples)
+    need the complex ``torch.fft`` tail, a later slice."""
+    if not supported(cfg.fft_points, cfg.guard_samples):
+        raise NotImplementedError(
+            f"FFT {cfg.fft_points} with GI {cfg.guard_samples} samples needs "
+            f"the complex torch.fft tail (ROADMAP.md queue A, 'the complex "
+            f"tail'), not ported yet")
+    return transmit_step_iq_planar
+
+
+class Transmitter:
+    """Streaming DVB-T2 transmitter: feed TS bytes, get baseband IQ.
+
+    Holds the cross-step state (the 187-byte carry window per PLP and the
+    T2 frame counter) on the host, and the plan's constants on
+    ``device``.
+    """
+
+    def __init__(self, cfg: T2Config, batch_frames: Optional[int] = None,
+                 strict: bool = True, *, device,
+                 allow_phase_drift: bool = False, start_phases=0):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {self.device} asked for, but "
+                               f"torch.cuda.is_available() is False")
+        self.cfg = cfg
+        self._step_fn = select_step_iq(cfg)
+        # start_phases: TS byte phase at the step start (build_plan)
+        plan = build_plan(cfg, batch_frames, strict=strict,
+                          start_phases=start_phases)
+        self.plan = plan
+        set_full_fp32_matmul()
+        self.tensors = plan_tensors(plan, self.device)
+        self._carries = [np.zeros(187, dtype=np.uint8) for _ in plan.plps]
+        self._frame_idx = 0
+        self._steps_done = 0
+        self._phase_invariant = all(pp.bb.phase_invariant
+                                    for pp in plan.plps)
+        self._allow_phase_drift = allow_phase_drift
+        self.counters = TxCounters()
+
+    @property
+    def bytes_per_step(self) -> int:
+        """Fresh TS bytes per step (first PLP; see bytes_per_step_per_plp)."""
+        return self.plan.ts_bytes_in
+
+    @property
+    def bytes_per_step_per_plp(self) -> tuple:
+        return self.plan.ts_bytes_per_plp
+
+    def _check_streamable(self) -> None:
+        """Refuse a second step of a plan whose step payload is not a
+        whole number of TS packets: it would start at a drifted packet
+        phase and emit wrong BB headers and CRC positions.
+        ``allow_phase_drift=True`` treats every step as an independent
+        phase-0 stream instead (mechanism tests and throughput runs; the
+        concatenated output is then not one valid DVB-T2 stream)."""
+        if (self._steps_done and not self._phase_invariant
+                and not self._allow_phase_drift):
+            raise RuntimeError(
+                f"this plan is single-shot: its step payload is not a "
+                f"multiple of the TS packet length, so a second step would "
+                f"start at a drifted packet phase and emit wrong BB "
+                f"headers; build with strict=True or batch_frames="
+                f"min_batch_frames(cfg) (= {min_batch_frames(self.cfg)}) "
+                f"for streaming")
+
+    def step_window(self, windows) -> torch.Tensor:
+        """One step from pre-carried (187 + fresh) byte windows: a
+        (187 + bytes_per_step,) uint8 array for one PLP, or a sequence of
+        per-PLP windows.  Updates the carries, frame counter and counters
+        like ``step_device``.  Returns the f32 (B, samples, 2) I/Q tensor
+        on the transmitter's device."""
+        ws = _as_windows(self.plan, windows)
+        self._check_streamable()
+        t0 = time.perf_counter()
+        ws = [np.asarray(w, dtype=np.uint8) for w in ws]
+        for pp, w in zip(self.plan.plps, ws):
+            if w.shape != (187 + pp.ts_bytes_in,):
+                raise ValueError(f"window of shape {w.shape}, expected "
+                                 f"({187 + pp.ts_bytes_in},)")
+        padded = [torch.tensor(w, device=self.device) for w in ws]
+        out = self._step_fn(self.tensors,
+                            padded if len(padded) > 1 else padded[0],
+                            self._frame_idx)
+        self._carries = [w[-187:].copy() for w in ws]
+        self._frame_idx = ((self._frame_idx + self.plan.batch_frames)
+                           % self.cfg.t2_frames)
+        self._steps_done += 1
+        self.counters.record_step(
+            self.plan.batch_frames, self.plan.samples_out,
+            sum(w.size - 187 for w in ws), time.perf_counter() - t0)
+        return out
+
+    def step_device(self, ts_bytes) -> torch.Tensor:
+        """One step of fresh TS bytes: (bytes_per_step,) uint8 for one
+        PLP, or per-PLP arrays matching bytes_per_step_per_plp.  Returns
+        the f32 (B, samples, 2) I/Q tensor on the device."""
+        streams = (list(ts_bytes) if isinstance(ts_bytes, (list, tuple))
+                   else [ts_bytes])
+        if len(streams) != len(self.plan.plps):
+            raise ValueError(f"{len(streams)} streams for "
+                             f"{len(self.plan.plps)} PLPs")
+        windows = []
+        for carry, pp, ts in zip(self._carries, self.plan.plps, streams):
+            ts = np.asarray(ts, dtype=np.uint8)
+            if ts.shape != (pp.ts_bytes_in,):
+                raise ValueError(f"TS of shape {ts.shape}, expected "
+                                 f"({pp.ts_bytes_in},)")
+            windows.append(np.concatenate([carry, ts]))
+        return self.step_window(windows if len(windows) > 1 else windows[0])
+
+    def __call__(self, ts_bytes) -> np.ndarray:
+        """One step of fresh TS bytes -> complex64 (B, samples_per_frame)
+        on the host."""
+        iq = self.step_device(ts_bytes).cpu().numpy()
+        return iq.reshape(iq.shape[0], -1).view(np.complex64)
+
+    # ----------------------------------------------------- checkpoint/resume
+    def state_dict(self) -> dict:
+        """The complete cross-step state: the 187-byte carry window per
+        PLP, the T2 frame counter and the step count.  The same keys and
+        types as the JAX package's, so checkpoints move both ways."""
+        return {
+            "carries": np.stack(self._carries).copy(),
+            "frame_idx": self._frame_idx,
+            "steps_done": self._steps_done,
+        }
+
+    def load_state(self, state: dict) -> None:
+        carries = np.asarray(state["carries"], dtype=np.uint8)
+        if carries.shape != (len(self.plan.plps), 187):
+            raise ValueError(f"carries of shape {carries.shape}, expected "
+                             f"({len(self.plan.plps)}, 187)")
+        self._carries = [carries[i].copy() for i in range(carries.shape[0])]
+        self._frame_idx = int(state["frame_idx"]) % self.cfg.t2_frames
+        # a checkpoint without a step count counts as taken after a step,
+        # unless it is the untouched initial state
+        if "steps_done" in state:
+            self._steps_done = int(state["steps_done"])
+        else:
+            fresh = (self._frame_idx == 0
+                     and all(not c.any() for c in self._carries))
+            self._steps_done = 0 if fresh else 1
+
+    def save(self, path: str) -> None:
+        np.savez(path, **self.state_dict())
+
+    def restore(self, path: str) -> None:
+        with np.load(path) as z:
+            self.load_state({k: z[k] for k in z.files})
+
+    def stream(self, ts_bytes) -> np.ndarray:
+        """Like __call__ but returns the flat emitted sample stream, with
+        FEF parts after every fef_interval-th T2 frame (EN 302 755
+        section 8.4; nothing is inserted when the config has no FEF)."""
+        start = self._frame_idx  # global frame index before the step
+        return self._with_fef(self(ts_bytes), start)
+
+    def _with_fef(self, frames: np.ndarray, start: int) -> np.ndarray:
+        cfg = self.cfg
+        if not cfg.has_fef:
+            return frames.reshape(-1)
+        parts = []
+        for i in range(frames.shape[0]):
+            parts.append(frames[i])
+            if (start + i) % cfg.fef_interval == cfg.fef_interval - 1:
+                parts.append(self.plan.fef_part)
+        return np.concatenate(parts)
+

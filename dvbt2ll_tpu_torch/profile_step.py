@@ -1,0 +1,124 @@
+"""Where a vv009 step's time goes on one CUDA device.
+
+    python -m dvbt2ll_tpu_torch.profile_step
+
+For each batch of 64, 128, 256 and 512 frames: ``Transmitter.step_device``
+timed on the host clock and fenced (window staging and host-to-device
+copy included), the step function alone on a window already on the
+device (CUDA events), and the peak device memory.  Then, at batch 256: ``bb_and_fec`` and
+``map_cells_planes`` alone (CUDA events), and a ``torch.profiler`` table
+of device time by operator over 5 ``step_device`` steps.  The ratio of
+the device step to ``step_device`` is printed as an estimate of the
+device's busy share: two clocks, not a trace.
+"""
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from . import Transmitter, synthetic_ts, vv009_config
+from .pipeline import bb_and_fec, map_cells_planes, transmit_step_iq_planar
+
+BATCHES = (64, 128, 256, 512)
+BATCH = 256            # the JAX package's bench default (bench.py:174)
+STEPS = 20
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = STEPS) -> float:
+    """Mean device milliseconds per call, after a warm-up, fenced."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _setup(batch: int):
+    """A batch-``batch`` vv009 transmitter on the card, 4 TS steps, and
+    the first as a pre-carried window on the device.  Each step is its own
+    phase-0 stream (allow_phase_drift), as in chip_smoke.py."""
+    tx = Transmitter(vv009_config(), batch, strict=False,
+                     allow_phase_drift=True, device="cuda")
+    ts = [synthetic_ts(tx.bytes_per_step, seed=i) for i in range(4)]
+    window = torch.from_numpy(
+        np.concatenate([np.zeros(187, np.uint8), ts[0]])).cuda()
+    return tx, ts, window
+
+
+def sweep(batch: int) -> None:
+    torch.cuda.reset_peak_memory_stats()
+    tx, ts, window = _setup(batch)
+    samples = batch * tx.cfg.samples_per_frame
+    for i in range(3):
+        tx.step_device(ts[i])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(STEPS):
+        tx.step_device(ts[i % 4])
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / STEPS * 1e3
+    dev_ms = cuda_ms(
+        lambda: transmit_step_iq_planar(tx.tensors, window, 0))
+    print(f"batch {batch}: step_device {host_ms:.3f} ms = "
+          f"{samples / host_ms / 1e3:.1f} Msamples/s; device step "
+          f"{dev_ms:.3f} ms = {samples / dev_ms / 1e3:.1f} Msamples/s; "
+          f"busy share estimate {dev_ms / host_ms:.3f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+
+
+def stages(batch: int) -> None:
+    tx, ts, window = _setup(batch)
+    pt = tx.tensors.plps[0]
+    bits = bb_and_fec(pt, window)
+    fec = cuda_ms(lambda: bb_and_fec(pt, window))
+    mapper = cuda_ms(lambda: map_cells_planes(pt, bits))
+    whole = cuda_ms(
+        lambda: transmit_step_iq_planar(tx.tensors, window, 0))
+    print(f"batch {batch} device ms: bb_and_fec {fec:.4f}, map_cells_planes "
+          f"{mapper:.4f}, frame builder + tail + P1 "
+          f"{whole - fec - mapper:.4f}, whole step {whole:.4f}")
+    for i in range(3):
+        tx.step_device(ts[i])
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(5):
+            tx.step_device(ts[i % 4])
+        torch.cuda.synchronize()
+    print(f"batch {batch}, 5 step_device steps under torch.profiler:")
+    print(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                    row_limit=25, max_name_column_width=60))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_step: no CUDA device", file=sys.stderr)
+        return 1
+    print(card_line())
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    for batch in BATCHES:
+        sweep(batch)
+    stages(BATCH)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
