@@ -4,8 +4,11 @@
 ``_build/<key>/libdvbt2ll_kernels.so``, where the key is a hash of the
 sources and the flags, so an edited source builds anew and an unchanged
 one is loaded as it is.  The library has a plain C interface, loaded with
-``ctypes``: no PyTorch headers, so a build takes seconds.  ``_build/`` is
-generated and not kept in git.
+``ctypes``: no PyTorch headers, so a build takes seconds.  Each source is
+compiled by its own ``nvcc``, all started together, then one link; what
+``ptxas`` reports for a source (registers, shared memory, spills) is kept
+beside the library as ``<source>.log``.  ``_build/`` is generated and not
+kept in git.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_NAME = "libdvbt2ll_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _sources() -> list:
@@ -55,15 +58,51 @@ def build(nvcc: str | None = None) -> str:
     path = os.path.join(BUILD_DIR, build_key(), LIB_NAME)
     if os.path.exists(path):
         return path
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc or find_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    out = os.path.dirname(path)
+    os.makedirs(out, exist_ok=True)
+    nvcc = nvcc or find_nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs, procs = [], []
+    for src in _sources():
+        obj = os.path.join(out, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, src, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for cmd, src, proc in procs:  # wait for every compile before raising
+        _, err = proc.communicate()
+        if proc.returncode:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{err}")
+        else:
+            with open(os.path.join(out, f"{os.path.basename(src)}.log"),
+                      "w") as f:
+                f.write(err)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = f"{path}.{tag}"
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+           "-o", tmp, *objs]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode:
         raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}"
                            f"\n{res.stderr}")
+    for obj in objs:
+        os.remove(obj)
     os.replace(tmp, path)  # atomic: a concurrent builder sees all or none
     return path
+
+
+def ptxas_report() -> str:
+    """What ptxas said of each kernel of the built library."""
+    out = os.path.dirname(build())
+    lines = []
+    for src in _sources():
+        with open(os.path.join(out, f"{os.path.basename(src)}.log")) as f:
+            lines += [ln.strip() for ln in f
+                      if any(w in ln for w in ("entry", "Used", "spill"))]
+    return "\n".join(lines)
 
 
 @functools.lru_cache(maxsize=1)
@@ -74,6 +113,8 @@ def library() -> ctypes.CDLL:
     lib.dvbt2ll_ldpc_parity.argtypes = [ptr, ptr, ptr, ptr, ptr,
                                         i32, i32, i32, ptr]
     lib.dvbt2ll_ldpc_parity.restype = i32
+    lib.dvbt2ll_ifft_gi.argtypes = [ptr] * 10 + [i32, i32, i32, ptr]
+    lib.dvbt2ll_ifft_gi.restype = i32
     lib.dvbt2ll_error_string.argtypes = [i32]
     lib.dvbt2ll_error_string.restype = ctypes.c_char_p
     return lib

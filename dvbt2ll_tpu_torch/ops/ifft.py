@@ -1,6 +1,10 @@
 """The planar OFDM tail: 4-step IFFT plus guard interval on re/im float32
-planes, as plain torch matmuls (``dvbt2ll_tpu/ops/ifft_pallas.py:46-98``,
-the einsum form the JAX package ships as its default).
+planes.  ``ifft_gi`` runs the CUDA kernel ``csrc/ifft_gi.cu`` on a CUDA
+tensor; ``ifft_gi_einsum`` is its plain twin, torch matmuls in the einsum
+form the JAX package ships as its default
+(``dvbt2ll_tpu/ops/ifft_pallas.py:70-98``).  The kernel replaces the Pallas
+TPU kernel ``ifft_gi_pallas`` (``ifft_pallas.py:181``); see its source for
+what bounds it on the card and what its design does about it.
 
 With N = N1 * N2 (N1 = 128), input element [b, s, k2, k1] holds carrier
 bin N2 * k1 + k2 (the frame builder's gather emits this layout), so both
@@ -8,8 +12,9 @@ products keep n1 on the last axis, the result rows come out in natural
 sample order, and the guard interval is a copy of the last gi / 128 rows.
 
 Precision matters: the chain must stay above 100 dB SNR against the
-reference, and TF32 products would not.  ``ifft_gi_einsum`` refuses to
-run on CUDA unless float32 matmuls are full float32.
+reference, and TF32 products would not.  The kernel computes in full
+float32 FMA; ``ifft_gi_einsum`` refuses to run on CUDA unless float32
+matmuls are full float32.
 """
 from __future__ import annotations
 
@@ -87,3 +92,65 @@ def ifft_gi_einsum(grids_re_t: torch.Tensor, grids_im_t: torch.Tensor,
     body_im = torch.cat([xi[:, :, n2 - gi_rows:], xi], dim=2)
     return (body_re.reshape(b, s, fft + gi),
             body_im.reshape(b, s, fft + gi))
+
+
+def ifft_gi(grids_re_t: torch.Tensor, grids_im_t: torch.Tensor, fft: int,
+            gi: int, scale: float, mats=None):
+    """``ifft_gi_einsum``'s contract: transposed-layout grids (B, S, N2, N1)
+    float32 planes -> (B, S, fft + gi) float32 planes (re, im), with
+    ``mats = factor_tensors(fft, scale, device)`` (built when None).
+
+    A CPU tensor goes through the plain twin.  A CUDA tensor launches
+    the kernel, or raises: there is no fallback.  ``ifft_gi.launches``
+    counts kernel launches."""
+    shape = tuple(grids_re_t.shape)
+    n2 = fft // N1
+    if (not supported(fft, gi) or gi > fft
+            or shape != tuple(grids_im_t.shape) or len(shape) != 4
+            or shape[2:] != (n2, N1)):
+        raise ValueError(f"grids {shape} and {tuple(grids_im_t.shape)} do "
+                         f"not fit fft={fft} gi={gi}")
+    if grids_re_t.dtype != torch.float32 or grids_im_t.dtype != torch.float32:
+        raise ValueError(f"grids must be float32, got {grids_re_t.dtype} "
+                         f"and {grids_im_t.dtype}")
+    dev = grids_re_t.device
+    if grids_im_t.device != dev:
+        raise ValueError(f"grids on {dev} and {grids_im_t.device}")
+    if dev.type == "cpu":
+        return ifft_gi_einsum(grids_re_t, grids_im_t, fft, gi, scale, mats)
+    if dev.type != "cuda":
+        raise ValueError(f"no OFDM tail kernel for device {dev}")
+    if mats is None:
+        mats = factor_tensors(fft, scale, dev)
+    mat_shapes = [(N1, N1)] * 2 + [(n2, N1)] * 2 + [(n2, n2)] * 2
+    for m, want in zip(mats, mat_shapes):
+        if m.device != dev or m.dtype != torch.float32:
+            raise ValueError(f"factor matrices must be float32 on {dev}, "
+                             f"got {m.dtype} on {m.device}")
+        if tuple(m.shape) != want:
+            raise ValueError(f"factor matrix {tuple(m.shape)}, expected "
+                             f"{want} for fft={fft}")
+    for t in (grids_re_t, grids_im_t, *mats):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("grids and factor matrices must be contiguous "
+                             "and 16-byte aligned")
+    b, s = shape[:2]
+    out_re = torch.empty((b, s, fft + gi), dtype=torch.float32, device=dev)
+    out_im = torch.empty_like(out_re)
+    if b * s == 0:
+        return out_re, out_im
+    from . import _build
+
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.dvbt2ll_ifft_gi(
+            grids_re_t.data_ptr(), grids_im_t.data_ptr(), out_re.data_ptr(),
+            out_im.data_ptr(), *(m.data_ptr() for m in mats), b * s, n2,
+            gi // N1, stream)
+    _build.check(lib, code, "ifft_gi launch")
+    ifft_gi.launches += 1
+    return out_re, out_im
+
+
+ifft_gi.launches = 0

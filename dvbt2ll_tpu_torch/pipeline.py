@@ -5,9 +5,9 @@ the planar tail (1K-8K FFTs with a guard interval of whole 128-sample
 rows).  PyTorch runs eagerly: each function is the JAX one's body with
 torch ops, and the plan's constants come as device tensors that
 ``convert.plan_tensors`` uploads once (the JAX package bakes them into
-its compiled step instead).  The LDPC parity of a CUDA tensor runs the
-hand-written kernel of ``ops/ldpc.py``; a CPU tensor takes its plain
-twin.
+its compiled step instead).  On a CUDA tensor the LDPC parity and the
+OFDM tail run the hand-written kernels of ``ops/ldpc.py`` and
+``ops/ifft.py``; a CPU tensor takes their plain twins.
 """
 from __future__ import annotations
 
@@ -19,10 +19,10 @@ import numpy as np
 import torch
 
 from ._bits import gf2_matmul, packbits, unpackbits
-from ._host.observability import TxCounters
+from ._host.observability import TxCounters, check_ts_sync
 from .config import T2Config
 from .convert import PlanTensors, PlpTensors, plan_tensors
-from .ops.ifft import ifft_gi_einsum, set_full_fp32_matmul, supported
+from .ops.ifft import ifft_gi, set_full_fp32_matmul, supported
 from .ops.ldpc import qc_ldpc_parity
 from .plan import build_plan, min_batch_frames
 
@@ -138,14 +138,11 @@ def _as_windows(plan, ts_padded) -> List[torch.Tensor]:
     return ws
 
 
-def transmit_step_iq_planar(tp: PlanTensors, ts_padded,
-                            frame_idx0: int) -> torch.Tensor:
-    """Padded TS windows (one per PLP) -> (B, samples, 2) f32 I/Q.
-
-    Cells, frame grids and the OFDM tail stay separate re/im planes.  The
-    frame builder's one gather lands straight in the 4-step IFFT's
-    transposed (S, N2, 128) layout, so the tail's rows come out in sample
-    order and the guard interval is a row copy (ops/ifft.py)."""
+def frame_grids(tp: PlanTensors, ts_padded, frame_idx0: int):
+    """Padded TS windows (one per PLP) -> the frame builder's transposed
+    grids (B, S, N2, 128) f32 re/im planes: FEC and mapping per PLP,
+    then L1, payload and dummy cells gathered straight into the 4-step
+    IFFT's layout, with pilots and the optional inverse sinc."""
     plan = tp.plan
     cfg = plan.cfg
     b = plan.batch_frames
@@ -171,15 +168,34 @@ def transmit_step_iq_planar(tp: PlanTensors, ts_padded,
     if tp.eq_t is not None:
         g_re = g_re * tp.eq_t
         g_im = g_im * tp.eq_t
+    return g_re, g_im
 
-    body_re, body_im = ifft_gi_einsum(
-        g_re, g_im, cfg.fft_points, cfg.guard_samples,
-        cfg.ofdm_normalization, tp.ifft)
+
+def ofdm_tail(tp: PlanTensors, g_re: torch.Tensor,
+              g_im: torch.Tensor) -> torch.Tensor:
+    """Transposed grids -> (B, samples, 2) f32 I/Q: the 4-step IFFT with
+    its guard interval (``ops/ifft.py::ifft_gi``), after P1."""
+    cfg = tp.plan.cfg
+    b = g_re.shape[0]
+    body_re, body_im = ifft_gi(g_re, g_im, cfg.fft_points,
+                               cfg.guard_samples, cfg.ofdm_normalization,
+                               tp.ifft)
     out_re = torch.cat([tp.p1_re.expand(b, -1), body_re.reshape(b, -1)],
                        dim=1)
     out_im = torch.cat([tp.p1_im.expand(b, -1), body_im.reshape(b, -1)],
                        dim=1)
     return torch.stack([out_re, out_im], dim=-1)
+
+
+def transmit_step_iq_planar(tp: PlanTensors, ts_padded,
+                            frame_idx0: int) -> torch.Tensor:
+    """Padded TS windows (one per PLP) -> (B, samples, 2) f32 I/Q.
+
+    Cells, frame grids and the OFDM tail stay separate re/im planes.  The
+    frame builder's one gather lands straight in the 4-step IFFT's
+    transposed (S, N2, 128) layout, so the tail's rows come out in sample
+    order and the guard interval is a row copy (ops/ifft.py)."""
+    return ofdm_tail(tp, *frame_grids(tp, ts_padded, frame_idx0))
 
 
 def select_step_iq(cfg: T2Config):
@@ -203,7 +219,7 @@ class Transmitter:
     """
 
     def __init__(self, cfg: T2Config, batch_frames: Optional[int] = None,
-                 strict: bool = True, *, device,
+                 strict: bool = True, validate_ts: bool = False, *, device,
                  allow_phase_drift: bool = False, start_phases=0):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -223,6 +239,7 @@ class Transmitter:
         self._phase_invariant = all(pp.bb.phase_invariant
                                     for pp in plan.plps)
         self._allow_phase_drift = allow_phase_drift
+        self._validate_ts = validate_ts
         self.counters = TxCounters()
 
     @property
@@ -255,8 +272,10 @@ class Transmitter:
         """One step from pre-carried (187 + fresh) byte windows: a
         (187 + bytes_per_step,) uint8 array for one PLP, or a sequence of
         per-PLP windows.  Updates the carries, frame counter and counters
-        like ``step_device``.  Returns the f32 (B, samples, 2) I/Q tensor
-        on the transmitter's device."""
+        like ``step_device``; with ``validate_ts`` each window's TS sync
+        bytes are checked first and misses add to
+        ``counters.sync_errors``.  Returns the f32 (B, samples, 2) I/Q
+        tensor on the transmitter's device."""
         ws = _as_windows(self.plan, windows)
         self._check_streamable()
         t0 = time.perf_counter()
@@ -265,6 +284,11 @@ class Transmitter:
             if w.shape != (187 + pp.ts_bytes_in,):
                 raise ValueError(f"window of shape {w.shape}, expected "
                                  f"({187 + pp.ts_bytes_in},)")
+            if self._validate_ts:
+                # a drifted per-phase plan starts mid-packet: its sync
+                # slots sit at the plan's start phase
+                self.counters.sync_errors += check_ts_sync(
+                    w[187:], phase=pp.bb.start_phase)
         padded = [torch.tensor(w, device=self.device) for w in ws]
         out = self._step_fn(self.tensors,
                             padded if len(padded) > 1 else padded[0],
@@ -342,6 +366,14 @@ class Transmitter:
         section 8.4; nothing is inserted when the config has no FEF)."""
         start = self._frame_idx  # global frame index before the step
         return self._with_fef(self(ts_bytes), start)
+
+    def stream_window(self, windows) -> np.ndarray:
+        """Like ``stream`` for ``step_window``'s pre-carried windows: the
+        flat emitted host stream, FEF parts included."""
+        start = self._frame_idx
+        iq = self.step_window(windows).cpu().numpy()
+        return self._with_fef(iq.reshape(iq.shape[0], -1).view(np.complex64),
+                              start)
 
     def _with_fef(self, frames: np.ndarray, start: int) -> np.ndarray:
         cfg = self.cfg

@@ -1,15 +1,18 @@
-"""Where a vv009 step's time goes on one CUDA device.
+"""Where a step's time goes on one CUDA device.
 
     python -m dvbt2ll_tpu_torch.profile_step
 
-For each batch of 64, 128, 256 and 512 frames: ``Transmitter.step_device``
-timed on the host clock and fenced (window staging and host-to-device
-copy included), the step function alone on a window already on the
-device (CUDA events), and the peak device memory.  Then, at batch 256: ``bb_and_fec`` and
-``map_cells_planes`` alone (CUDA events), and a ``torch.profiler`` table
-of device time by operator over 5 ``step_device`` steps.  The ratio of
-the device step to ``step_device`` is printed as an estimate of the
-device's busy share: two clocks, not a trace.
+For vv009 at each batch of 64, 128, 256 and 512 frames, and 8k_normal at
+batch 256: ``Transmitter.step_device`` timed on the host clock and fenced
+(window staging and host-to-device copy included), the step function
+alone on a window already on the device (CUDA events), and the peak
+device memory.  Then, for both at batch 256, each part of the device
+step alone (CUDA events): ``bb_and_fec``, ``map_cells_planes``, the rest
+of the frame builder, the OFDM tail kernel (and its plain twin on the
+same grids), and P1 with the I/Q interleave.  Last, a ``torch.profiler``
+table of device time by operator over 5 vv009 ``step_device`` steps.
+The ratio of the device step to ``step_device`` is printed as an
+estimate of the device's busy share: two clocks, not a trace.
 """
 import subprocess
 import sys
@@ -18,8 +21,10 @@ import time
 import numpy as np
 import torch
 
-from . import Transmitter, synthetic_ts, vv009_config
-from .pipeline import bb_and_fec, map_cells_planes, transmit_step_iq_planar
+from . import Transmitter, named_config, synthetic_ts
+from .ops.ifft import ifft_gi, ifft_gi_einsum
+from .pipeline import (bb_and_fec, frame_grids, map_cells_planes, ofdm_tail,
+                       transmit_step_iq_planar)
 
 BATCHES = (64, 128, 256, 512)
 BATCH = 256            # the JAX package's bench default (bench.py:174)
@@ -50,11 +55,11 @@ def cuda_ms(fn, iters: int = STEPS) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _setup(batch: int):
-    """A batch-``batch`` vv009 transmitter on the card, 4 TS steps, and
-    the first as a pre-carried window on the device.  Each step is its own
-    phase-0 stream (allow_phase_drift), as in chip_smoke.py."""
-    tx = Transmitter(vv009_config(), batch, strict=False,
+def _setup(name: str, batch: int):
+    """A batch-``batch`` transmitter of ``name`` on the card, 4 TS steps,
+    and the first as a pre-carried window on the device.  Each step is
+    its own phase-0 stream (allow_phase_drift), as in chip_smoke.py."""
+    tx = Transmitter(named_config(name), batch, strict=False,
                      allow_phase_drift=True, device="cuda")
     ts = [synthetic_ts(tx.bytes_per_step, seed=i) for i in range(4)]
     window = torch.from_numpy(
@@ -62,9 +67,9 @@ def _setup(batch: int):
     return tx, ts, window
 
 
-def sweep(batch: int) -> None:
+def sweep(name: str, batch: int) -> None:
     torch.cuda.reset_peak_memory_stats()
-    tx, ts, window = _setup(batch)
+    tx, ts, window = _setup(name, batch)
     samples = batch * tx.cfg.samples_per_frame
     for i in range(3):
         tx.step_device(ts[i])
@@ -76,24 +81,38 @@ def sweep(batch: int) -> None:
     host_ms = (time.perf_counter() - t0) / STEPS * 1e3
     dev_ms = cuda_ms(
         lambda: transmit_step_iq_planar(tx.tensors, window, 0))
-    print(f"batch {batch}: step_device {host_ms:.3f} ms = "
+    print(f"{name} batch {batch}: step_device {host_ms:.3f} ms = "
           f"{samples / host_ms / 1e3:.1f} Msamples/s; device step "
           f"{dev_ms:.3f} ms = {samples / dev_ms / 1e3:.1f} Msamples/s; "
           f"busy share estimate {dev_ms / host_ms:.3f}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
 
 
-def stages(batch: int) -> None:
-    tx, ts, window = _setup(batch)
-    pt = tx.tensors.plps[0]
+def stages(name: str, batch: int) -> None:
+    tx, _, window = _setup(name, batch)
+    cfg, tp = tx.cfg, tx.tensors
+    pt = tp.plps[0]
     bits = bb_and_fec(pt, window)
     fec = cuda_ms(lambda: bb_and_fec(pt, window))
     mapper = cuda_ms(lambda: map_cells_planes(pt, bits))
-    whole = cuda_ms(
-        lambda: transmit_step_iq_planar(tx.tensors, window, 0))
-    print(f"batch {batch} device ms: bb_and_fec {fec:.4f}, map_cells_planes "
-          f"{mapper:.4f}, frame builder + tail + P1 "
-          f"{whole - fec - mapper:.4f}, whole step {whole:.4f}")
+    grids = cuda_ms(lambda: frame_grids(tp, window, 0))
+    g_re, g_im = frame_grids(tp, window, 0)
+    args = (g_re, g_im, cfg.fft_points, cfg.guard_samples,
+            cfg.ofdm_normalization, tp.ifft)
+    tail = cuda_ms(lambda: ifft_gi(*args))
+    plain = cuda_ms(lambda: ifft_gi_einsum(*args))
+    after = cuda_ms(lambda: ofdm_tail(tp, g_re, g_im))
+    whole = cuda_ms(lambda: transmit_step_iq_planar(tp, window, 0))
+    samples = batch * cfg.samples_per_frame
+    print(f"{name} batch {batch} device ms: bb_and_fec {fec:.4f}, "
+          f"map_cells_planes {mapper:.4f}, rest of the frame builder "
+          f"{grids - fec - mapper:.4f}, tail kernel {tail:.4f} (plain twin "
+          f"{plain:.4f}), P1 + I/Q interleave {after - tail:.4f}; whole "
+          f"step {whole:.4f} = {samples / whole / 1e3:.1f} Msamples/s")
+
+
+def operators(name: str, batch: int) -> None:
+    tx, ts, _ = _setup(name, batch)
     for i in range(3):
         tx.step_device(ts[i])
     torch.cuda.synchronize()
@@ -103,7 +122,7 @@ def stages(batch: int) -> None:
         for i in range(5):
             tx.step_device(ts[i % 4])
         torch.cuda.synchronize()
-    print(f"batch {batch}, 5 step_device steps under torch.profiler:")
+    print(f"{name} batch {batch}, 5 step_device steps under torch.profiler:")
     print(prof.key_averages().table(sort_by="self_cuda_time_total",
                                     row_limit=25, max_name_column_width=60))
 
@@ -115,8 +134,11 @@ def main() -> int:
     print(card_line())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     for batch in BATCHES:
-        sweep(batch)
-    stages(BATCH)
+        sweep("vv009_4kshort", batch)
+    sweep("8k_normal", BATCH)
+    for name in ("vv009_4kshort", "8k_normal"):
+        stages(name, BATCH)
+    operators("vv009_4kshort", BATCH)
     return 0
 
 

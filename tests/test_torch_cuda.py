@@ -1,5 +1,5 @@
-"""The port's CUDA kernel on the GPU: it runs only where a CUDA device
-and nvcc exist, and skips elsewhere.  It imports no JAX, so it runs on a
+"""The port's CUDA kernels on the GPU: they run only where a CUDA device
+and nvcc exist, and skip elsewhere.  It imports no JAX, so it runs on a
 machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -10,13 +10,22 @@ import numpy as np
 import pytest
 import torch
 
-from dvbt2ll_tpu_torch import Transmitter, named_config, synthetic_ts
-from dvbt2ll_tpu_torch._host.config import CodeRate, FrameSize, T2Config
+from dvbt2ll_tpu_torch import (Transmitter, min_batch_frames, named_config,
+                               synthetic_ts)
+from dvbt2ll_tpu_torch._host.config import (CodeRate, FrameSize, InputMode,
+                                            T2Config)
 from dvbt2ll_tpu_torch._host.tables.ldpc import qc_entries
 from dvbt2ll_tpu_torch.ops import ifft
 from dvbt2ll_tpu_torch.ops.ldpc import (ldpc_schedule, qc_ldpc_parity,
                                         qc_ldpc_parity_plain)
 from dvbt2ll_tpu_torch.pipeline import bb_and_fec
+
+# every planar named config with a reference-binary golden, and multi-PLP
+_ON_CARD = ["vv009_4kshort", "8k_normal", "hieff_4k", "inband_2k",
+            "8k_miso_tx1", "8k_miso_tx2", "1k_pp4", "qpsk_short_c13",
+            "ti_off_4k", "t2lite_4k", "v121_4k", "eq_2k_5mhz",
+            "multiplp_fef"]
+_TAIL = [(n2, rows) for n2 in (8, 16, 32, 64) for rows in (1, n2 // 4)]
 
 pytestmark = pytest.mark.cuda
 
@@ -51,6 +60,54 @@ def test_kernel_matches_plain_every_table(cuda, frame_size, rate):
     assert torch.equal(got, qc_ldpc_parity_plain(sched, bits))
 
 
+def _snr_db(ref, x):
+    ref = np.asarray(ref, np.complex128).ravel()
+    x = np.asarray(x, np.complex128).ravel()
+    err = np.sum(np.abs(x - ref) ** 2)
+    return np.inf if err == 0 else 10 * np.log10(np.sum(np.abs(ref) ** 2)
+                                                 / err)
+
+
+def _grids(cuda, n2, b=3, s=5, seed=4):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(
+        (b, s, n2, 128)).astype(np.float32)).to(cuda) for _ in range(2))
+
+
+@pytest.mark.parametrize("n2,gi_rows", _TAIL,
+                         ids=[f"n2_{n}-gi_{g}" for n, g in _TAIL])
+def test_tail_kernel_matches_twin(cuda, n2, gi_rows):
+    """Above 120 dB: both float32, the sums taken in another order."""
+    fft, gi = 128 * n2, 128 * gi_rows
+    re, im = _grids(cuda, n2)
+    mats = ifft.factor_tensors(fft, 0.25, cuda)
+    before = ifft.ifft_gi.launches
+    got = ifft.ifft_gi(re, im, fft, gi, 0.25, mats)
+    assert ifft.ifft_gi.launches == before + 1
+    want = ifft.ifft_gi_einsum(re, im, fft, gi, 0.25, mats)
+    torch.cuda.synchronize()
+    assert got[0].shape == (3, 5, fft + gi)
+    snr = _snr_db(torch.complex(*want).cpu().numpy(),
+                  torch.complex(*got).cpu().numpy())
+    assert snr > 120, f"{snr:.1f} dB"
+
+
+def test_tail_kernel_refusals(cuda):
+    re, im = _grids(cuda, 32)
+    mats = ifft.factor_tensors(4096, 1.0, cuda)
+    wide = torch.zeros((3, 5, 32, 256), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ifft.ifft_gi(wide[..., ::2], wide[..., 1::2], 4096, 128, 1.0, mats)
+    with pytest.raises(ValueError, match="float32"):
+        ifft.ifft_gi(re.double(), im.double(), 4096, 128, 1.0, mats)
+    on_cpu = ifft.factor_tensors(4096, 1.0, "cpu")
+    with pytest.raises(ValueError, match="factor matrices"):
+        ifft.ifft_gi(re, im, 4096, 128, 1.0, on_cpu)
+    before = ifft.ifft_gi.launches
+    ifft.ifft_gi(re, im, 4096, 128, 1.0)  # mats built on the card
+    assert ifft.ifft_gi.launches == before + 1
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
     cfg = named_config("vv009_4kshort")
     cols = qc_entries(cfg.frame_size, cfg.code_rate, cfg.q_ldpc)
@@ -76,18 +133,29 @@ def test_tail_refuses_tf32(cuda):
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-@pytest.mark.parametrize("name", ["vv009_4kshort", "8k_normal"])
+@pytest.mark.parametrize("name", _ON_CARD)
 def test_transmitter_on_card_matches_cpu(cuda, name):
+    """Two frames (HIEFF: its smallest batch of whole packets): FEC bits
+    equal, IQ above 120 dB (the kernels sum in another order than the
+    CPU), each kernel launched once a step (the LDPC kernel once per
+    PLP)."""
     cfg = named_config(name)
-    tx = Transmitter(cfg, 2, strict=False, device=cuda)
-    ref = Transmitter(cfg, 2, strict=False, device="cpu")
-    ts = synthetic_ts(tx.bytes_per_step, seed=5)
-    w = torch.from_numpy(np.concatenate([np.zeros(187, np.uint8), ts]))
-    assert torch.equal(bb_and_fec(tx.tensors.plps[0], w.to(cuda)).cpu(),
-                       bb_and_fec(ref.tensors.plps[0], w))
-    before = qc_ldpc_parity.launches
-    got = tx(ts)
-    assert qc_ldpc_parity.launches == before + 1
-    want = ref(ts)
-    err = np.sum(np.abs(got.astype(np.complex128) - want) ** 2)
-    assert err == 0 or 10 * np.log10(np.sum(np.abs(want) ** 2) / err) > 120
+    batch = (min_batch_frames(cfg) if cfg.input_mode == InputMode.HIEFF
+             else 2)
+    tx = Transmitter(cfg, batch, strict=False, device=cuda)
+    ref = Transmitter(cfg, batch, strict=False, device="cpu")
+    streams = [synthetic_ts(n, seed=5 + i)
+               for i, n in enumerate(tx.bytes_per_step_per_plp)]
+    for pt, pr, ts in zip(tx.tensors.plps, ref.tensors.plps, streams):
+        w = torch.from_numpy(np.concatenate([np.zeros(187, np.uint8), ts]))
+        assert torch.equal(bb_and_fec(pt, w.to(cuda)).cpu(),
+                           bb_and_fec(pr, w))
+    ldpc_before = qc_ldpc_parity.launches
+    tail_before = ifft.ifft_gi.launches
+    got = tx(streams if len(streams) > 1 else streams[0])
+    assert qc_ldpc_parity.launches == ldpc_before + len(streams)
+    assert ifft.ifft_gi.launches == tail_before + 1
+    want = ref(streams if len(streams) > 1 else streams[0])
+    assert got.shape == want.shape
+    snr = _snr_db(want, got)
+    assert snr > 120, f"{snr:.1f} dB"

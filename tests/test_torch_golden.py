@@ -1,8 +1,10 @@
 """The port's ``Transmitter`` on the CPU against vectors the unmodified
 reference C++ produced (``tests/golden_ref``, see
-tests/test_reference_golden.py), for the two configurations of this
-slice: FEC bits exact, mapper cells within atol 2e-6, IQ above 100 dB
-SNR - the JAX package's own bars."""
+tests/test_reference_golden.py), for every planar configuration (1K-8K
+FFTs, guard intervals of whole 128-sample rows): FEC bits exact, mapper
+cells within atol 2e-6, IQ above 100 dB SNR - the JAX package's own
+bars.  The 16K/32K goldens and t2lite_8k_t2gi_miso (GI 1216) need the
+complex tail, a later slice."""
 import dataclasses
 import importlib.util
 import os
@@ -12,10 +14,14 @@ import pytest
 import torch
 
 from dvbt2ll_tpu_torch import Transmitter, named_config, synthetic_ts
+from dvbt2ll_tpu_torch.config import NAMED_CONFIGS
+from dvbt2ll_tpu_torch.ops.ifft import supported
 from dvbt2ll_tpu_torch.pipeline import bb_and_fec, map_cells
 
 _DIR = os.path.join(os.path.dirname(__file__), "golden_ref")
-_NAMES = ["vv009_4kshort", "8k_normal"]
+_NAMES = ["vv009_4kshort", "8k_normal", "hieff_4k", "inband_2k",
+          "8k_miso_tx1", "8k_miso_tx2", "1k_pp4", "qpsk_short_c13",
+          "ti_off_4k", "t2lite_4k", "v121_4k", "eq_2k_5mhz"]
 
 
 @pytest.fixture(autouse=True)
@@ -48,14 +54,31 @@ def golden(request):
     return name, cfg, g, ts, tx
 
 
-def test_named_config_matches_bench(golden):
-    name, cfg = golden[:2]
+@pytest.fixture(scope="module")
+def bench():
     spec = importlib.util.spec_from_file_location(
         "bench", os.path.join(os.path.dirname(__file__), "..", "bench.py"))
-    bench = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(bench)
-    assert (dataclasses.asdict(cfg)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", NAMED_CONFIGS)
+def test_named_config_matches_bench(bench, name):
+    assert (dataclasses.asdict(named_config(name))
             == dataclasses.asdict(bench._named_config(name)))
+
+
+def test_registry_is_whole():
+    """Every golden has a named config, every planar golden is a case
+    here, and an unknown name raises."""
+    goldens = {f[:-4] for f in os.listdir(_DIR) if f.endswith(".npz")}
+    assert goldens < set(NAMED_CONFIGS)
+    cfgs = {n: named_config(n) for n in goldens}
+    assert set(_NAMES) == {n for n, c in cfgs.items()
+                           if supported(c.fft_points, c.guard_samples)}
+    with pytest.raises(ValueError, match="unknown"):
+        named_config("no_such_config")
 
 
 def test_fec_bit_exact(golden):

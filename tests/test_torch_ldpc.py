@@ -128,8 +128,11 @@ def test_build_caches_by_source_hash(tmp_path, monkeypatch):
     assert path == os.path.join(str(tmp_path / "build"), _build.build_key(),
                                 _build.LIB_NAME)
     assert os.path.exists(path)
+    # one compile per source, then one link
+    calls = log.read_text().count("call")
+    assert calls == len(_build._sources()) + 1
     assert _build.build(nvcc) == path
-    assert log.read_text().count("call") == 1
+    assert log.read_text().count("call") == calls
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
