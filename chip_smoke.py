@@ -15,26 +15,43 @@ imports no JAX.  Phases, each of which raises on failure:
 3. the OFDM tail kernel (4-step IFFT + guard interval) against its plain
    twin on the same grids, above 120 dB SNR: vv009 and 8k_normal at batch
    256, timed, and every other planar (fft, gi) shape;
-4. the twelve planar reference-binary goldens (``tests/golden_ref``)
-   through ``Transmitter`` on the card: FEC bits exact, IQ above 100 dB;
+4. all seventeen reference-binary goldens (``tests/golden_ref``) through
+   ``Transmitter`` on the card, the twelve planar ones and the five of the
+   complex ``torch.fft`` tail (16K, 32K, GI 1216): FEC bits exact, IQ
+   above 100 dB;
 5. the main path at full width: vv009 at batch 256 through
    ``Transmitter.step_device``.  The first step's FEC bits equal the port
    on the CPU exactly and its IQ is above 120 dB SNR against it; then
    streaming steps, timed, with the frame counter and carries checked and
    both kernels launched once a step;
-6. 8k_normal at batch 256 the same way, over fewer steps;
+6. 8k_normal and 32k_extended at batch 256 the same way, over fewer
+   steps; 32k_extended runs the complex tail, so the LDPC kernel launches
+   once a step and the tail kernel never;
 7. multiplp_fef (two PLPs, FEF parts), strict, at three times its
    smallest streamable batch: ``stream_window`` on the card against
-   ``stream`` on the CPU, FEF parts and state included.
+   ``stream`` on the CPU, FEF parts and state included;
+8. the runtime, vv009 strict at its smallest streamable batch, fed by the
+   native TS ingest ring reading a real OS pipe: ``StreamingExecutor``'s
+   sink stream bit-identical to ``Transmitter.stream`` on the card; a
+   paced run of about 10 s of air into the native async sink (lag at most
+   one step, no sync errors, the sink's sample count exact, warm-up step
+   included); the app ``dvbt2ll_tpu_torch.apps.vv009_4kshort`` as a
+   subprocess on the card against the port on the CPU; and the
+   executor's emitted rate, device-to-host copy included, for vv009 at
+   batch 256 and multiplp_fef, beside ``stream``/``stream_window``.
 
-The kernel launch counts are set to 0 just before each of phases 5-7 and
-read just after.  Prints the kernel table as one JSON line, then, as its
-last line, ``{"ok": true, "device": {...}}``.  Exits non-zero, without
-that line, when there is no CUDA device or any phase fails.
+The kernel launch counts are set to 0 just before each path of phases
+5-8 and read just after.  Prints the kernel table as one JSON line, then,
+as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero,
+without that line, when there is no CUDA device or any phase fails.
 """
+import contextlib
 import json
 import os
+import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -43,12 +60,20 @@ SEED = 2026
 BATCH = 256            # the JAX package's bench default (bench.py:174)
 STREAM_STEPS = 20      # vv009 main path
 STEPS_8K = 5
+STEPS_32K = 3
 MPLP_STEPS = 3
+RUNTIME_STEPS = 4      # executor vs stream, bit for bit
+PACED_SECONDS = 10.0   # of air, at vv009's profile rate
+RATE_STEPS = 10        # executor and stream rate runs
+GAIN = 0.2             # the reference app's output gain
 IQ_GOLDEN_DB = 100.0   # the JAX package's bar against the reference binary
 IQ_CPU_DB = 120.0      # card vs the port on the CPU, same math
 GOLDENS = ("vv009_4kshort", "8k_normal", "hieff_4k", "inband_2k",
            "8k_miso_tx1", "8k_miso_tx2", "1k_pp4", "qpsk_short_c13",
-           "ti_off_4k", "t2lite_4k", "v121_4k", "eq_2k_5mhz")
+           "ti_off_4k", "t2lite_4k", "v121_4k", "eq_2k_5mhz",
+           # the complex tail
+           "32k_extended", "32k_papr_tr", "16k_l1qpsk_both",
+           "t2lite_16k_t2gi", "t2lite_8k_t2gi_miso")
 LDPC_CASES = (("vv009_4kshort", 8 * BATCH), ("8k_normal", 512))
 TAIL_DB = 120.0        # tail kernel vs its twin: both float32, sums reordered
 # ((B, S), fft, gi, name when timed): vv009 and 8k_normal at batch 256, then
@@ -182,8 +207,9 @@ def full_width_phase(torch, dev, name: str, steps: int) -> dict:
     """``name`` at batch 256 through ``step_device``: step 0 against the
     port on the CPU, then ``steps`` streaming steps, timed."""
     from dvbt2ll_tpu_torch import Transmitter, named_config, synthetic_ts
-    from dvbt2ll_tpu_torch.pipeline import bb_and_fec
+    from dvbt2ll_tpu_torch.pipeline import bb_and_fec, select_step_iq
     cfg = named_config(name)
+    planar = select_step_iq(cfg)[1]
     # 256 frames is not a whole number of TS packets: each step is its own
     # phase-0 stream, as in bench.py
     kw = dict(strict=False, allow_phase_drift=True)
@@ -222,11 +248,12 @@ def full_width_phase(torch, dev, name: str, steps: int) -> dict:
     require(np.array_equal(state["carries"][0], ts[-1][-187:]),
             f"{name}: carry")
     require(tx.counters.frames == (1 + steps) * BATCH, f"{name}: counters")
-    for kernel, count in counts.items():
-        require(count == 1 + steps, f"{name}: {kernel} launched {count} "
-                f"times in {1 + steps} steps")
+    want = {"ldpc_parity": 1 + steps, "ifft_gi": (1 + steps) * planar}
+    require(counts == want, f"{name}: launches {counts} in {1 + steps} "
+            f"steps, expected {want}")
     rate = samples / dt / 1e6
-    print(f"{name} batch {BATCH}: FEC bits of {bits.shape[0]} frames equal "
+    print(f"{name} batch {BATCH} ({'planar' if planar else 'complex'} "
+          f"tail): FEC bits of {bits.shape[0]} frames equal "
           f"the CPU's; step 0 IQ vs CPU {snr:.2f} dB; {steps} streaming "
           f"steps in {dt:.4f} s = {rate:.2f} Msamples/s; launches {counts}")
     return counts
@@ -299,7 +326,254 @@ def multiplp_phase(torch, dev) -> dict:
           f"in place, lengths equal, IQ vs CPU stream {snr:.2f} dB, "
           f"state equal; {dt:.4f} s = {rate:.2f} Msamples/s emitted "
           f"(device-to-host copy included); launches {counts}")
+    return counts, rate
+
+
+@contextlib.contextmanager
+def pipe_ingest(data: np.ndarray):
+    """``data`` written into a real OS pipe by a thread and read back by
+    the native TS ingest ring's pump thread.  Yields (source, ingest):
+    ``source(n)`` gives the next n fresh TS bytes, waiting for the ring."""
+    from dvbt2ll_tpu_torch._host.io.ingest import TSIngest
+    rfd, wfd = os.pipe()
+
+    def feed():
+        with os.fdopen(wfd, "wb") as f:
+            f.write(data.tobytes())
+
+    feeder = threading.Thread(target=feed, daemon=True)
+    feeder.start()
+    try:
+        with TSIngest(fd=rfd, capacity=1 << 25) as ing:
+            ing.start_thread()
+
+            def source(nbytes):
+                deadline = time.monotonic() + 60
+                while time.monotonic() < deadline:
+                    w = ing.window(nbytes, allow_stuffing=False)
+                    if w is not None:
+                        return w[187:]
+                    time.sleep(0.0002)
+                raise RuntimeError("chip_smoke: the ingest ring gave no "
+                                   "window in 60 s")
+
+            yield source, ing
+    finally:
+        feeder.join(timeout=30)
+        os.close(rfd)
+        require(not feeder.is_alive(), "the pipe feeder did not finish")
+
+
+class ListSink:
+    def __init__(self):
+        self.chunks = []
+
+    def write(self, iq):
+        self.chunks.append(iq)
+
+
+def executor_phase(torch, dev) -> dict:
+    """vv009 strict through ``StreamingExecutor`` on the card, fed by the
+    native ingest ring over a pipe: every step's output, kept by the
+    caller until the end, bit-identical to ``Transmitter.stream`` on the
+    card over the same TS."""
+    from dvbt2ll_tpu_torch import (StreamingExecutor, Transmitter,
+                                   min_batch_frames, synthetic_ts,
+                                   vv009_config)
+    from dvbt2ll_tpu_torch.executor import _HostCopy
+    cfg = vv009_config()
+    b = min_batch_frames(cfg)
+    tx = Transmitter(cfg, b, validate_ts=True, device=dev)
+    ref = Transmitter(cfg, b, device=dev)
+    n = tx.bytes_per_step
+    ts = synthetic_ts(RUNTIME_STEPS * n, seed=SEED + 200)
+    want = [ref.stream(ts[k * n:(k + 1) * n]) for k in range(RUNTIME_STEPS)]
+
+    sink = ListSink()
+    with pipe_ingest(ts) as (source, ing):
+        ex = StreamingExecutor(tx, source, sink)
+        reset_launches()
+        got = [ex.step() for _ in range(RUNTIME_STEPS)]
+        pending = ex._pending[0]
+        got.append(ex.flush())
+        counts = launches()
+        stats = ing.stats
+    require(got[0] is None, "executor: first step returned IQ")
+    require(isinstance(pending, _HostCopy) and pending.host.is_pinned(),
+            "executor: the card's output did not go to pinned memory")
+    for k, (g, w, c) in enumerate(zip(got[1:], want, sink.chunks)):
+        require(g is c and g.shape == (b, cfg.samples_per_frame)
+                and np.array_equal(g.reshape(-1), w),
+                f"executor step {k}: not bit-identical to stream")
+    require(len(sink.chunks) == RUNTIME_STEPS, "executor: sink writes")
+    require(stats["sync_errors"] == 0 and tx.counters.sync_errors == 0,
+            f"executor: sync errors {stats} {tx.counters}")
+    require(counts == {"ldpc_parity": RUNTIME_STEPS,
+                       "ifft_gi": RUNTIME_STEPS},
+            f"executor: launches {counts} in {RUNTIME_STEPS} steps")
+    print(f"executor vv009 batch {b}, {RUNTIME_STEPS} strict steps from a "
+          f"pipe through the native ingest ring: every returned array "
+          f"bit-identical to stream on the card after the last step; "
+          f"pinned host copies; ingest {stats}; launches {counts}")
     return counts
+
+
+def paced_phase(torch, dev, tmp: str) -> dict:
+    """About PACED_SECONDS of vv009 air through the executor, paced at the
+    profile's rate, from the ingest ring into the native async sink."""
+    from dvbt2ll_tpu_torch import (StreamingExecutor, Transmitter,
+                                   min_batch_frames, synthetic_ts,
+                                   vv009_config)
+    from dvbt2ll_tpu_torch._host.io.native_sink import NativeIQSink
+    cfg = vv009_config()
+    b = min_batch_frames(cfg)
+    tx = Transmitter(cfg, b, validate_ts=True, device=dev)
+    n = tx.bytes_per_step
+    step_t = b * cfg.emitted_frame_duration
+    steps = max(2, round(PACED_SECONDS / step_t))
+    path = os.path.join(tmp, "paced.cf32")
+    ts = synthetic_ts((1 + steps) * n, seed=SEED + 300)
+    with pipe_ingest(ts) as (source, ing):
+        sink = NativeIQSink(path, gain=GAIN)
+        try:
+            ex = StreamingExecutor(tx, source, sink, realtime=True)
+            ex.step()   # warm-up, outside the schedule; its output counts
+            ex.flush()
+            reset_launches()
+            t0 = time.perf_counter()
+            ex.run(steps)
+            sink.flush()
+            wall = time.perf_counter() - t0
+            counts = launches()
+            written, stalls = sink.samples_written, sink.producer_stalls
+        finally:
+            sink.close()
+        stats = ing.stats
+    lag = wall - steps * step_t
+    want = (1 + steps) * b * cfg.samples_per_frame   # warm-up step included
+    require(lag <= step_t, f"paced: lag {lag:.4f} s over {steps} steps of "
+            f"{step_t:.4f} s")
+    require(tx.counters.sync_errors == 0 and stats["sync_errors"] == 0
+            and stats["null_stuffed"] == 0, f"paced: ingest {stats}, "
+            f"{tx.counters.sync_errors} sync errors")
+    require(written == want and os.path.getsize(path) == 8 * want,
+            f"paced: sink {written} samples, file {os.path.getsize(path)} "
+            f"bytes, expected {want} samples")
+    require(counts == {"ldpc_parity": steps, "ifft_gi": steps},
+            f"paced: launches {counts} in {steps} steps")
+    print(f"paced vv009 batch {b}: {steps} steps of {step_t:.4f} s air "
+          f"({steps * step_t:.2f} s) in {wall:.4f} s, lag {lag:.4f} s "
+          f"(bound {step_t:.4f}), sync errors 0, sink {written} samples = "
+          f"(1 warm-up + {steps}) x {b} x {cfg.samples_per_frame}, "
+          f"producer stalls {stalls}; launches {counts}")
+    return counts
+
+
+def app_phase(torch, dev, tmp: str) -> None:
+    """The app as a subprocess on the card against the port on the CPU."""
+    from dvbt2ll_tpu_torch import (Transmitter, min_batch_frames,
+                                   synthetic_ts, vv009_config)
+    cfg = vv009_config()
+    b = min_batch_frames(cfg)
+    out = os.path.join(tmp, "app.cf32")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "dvbt2ll_tpu_torch.apps.vv009_4kshort", out,
+         "--frames", str(2 * b), "--native-sink", "--device", str(dev)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    dt = time.perf_counter() - t0
+    require(res.returncode == 0, f"app: rc {res.returncode}\n{res.stderr}")
+    tx = Transmitter(cfg, b, device="cpu")
+    want = np.concatenate([tx.stream(synthetic_ts(tx.bytes_per_step,
+                                                  seed=i))
+                           for i in range(2)]) * np.float32(GAIN)
+    got = np.fromfile(out, dtype=np.complex64)
+    require(got.shape == want.shape, f"app: {got.size} samples, expected "
+            f"{want.size}")
+    snr = snr_db(want, got)
+    require(snr > IQ_CPU_DB, f"app: cf32 vs CPU {snr:.2f} dB")
+    print(f"app vv009_4kshort --device {dev} --native-sink, 2 strict steps "
+          f"of {b} frames, subprocess {dt:.2f} s: cf32 vs CPU stream x "
+          f"{GAIN} {snr:.2f} dB; it said: {res.stdout.strip()}")
+
+
+def rate_phase(torch, dev, name: str, batch: int, strict: bool,
+               stream_rate=None) -> dict:
+    """Emitted Msamples/s of ``StreamingExecutor`` (pinned asynchronous
+    copy, overlapped) and of a ``stream`` loop (pageable blocking copy),
+    both with the device-to-host copy and FEF insertion included."""
+    from dvbt2ll_tpu_torch import (StreamingExecutor, Transmitter,
+                                   named_config, synthetic_ts)
+    cfg = named_config(name)
+    kw = (dict(strict=True) if strict
+          else dict(strict=False, allow_phase_drift=True))
+    tx = Transmitter(cfg, batch, device=dev, **kw)
+    ns = tx.bytes_per_step_per_plp
+    data = [synthetic_ts((2 + RATE_STEPS) * m, seed=SEED + 400 + i)
+            for i, m in enumerate(ns)]
+
+    def one(k):
+        ts = [d[k * m:(k + 1) * m] for d, m in zip(data, ns)]
+        return ts if len(ts) > 1 else ts[0]
+
+    pos = [0] * len(ns)
+
+    def reader(i):
+        def source(nbytes):
+            o = pos[i]
+            pos[i] += nbytes
+            return data[i][o:o + nbytes]
+        return source
+
+    ex = StreamingExecutor(tx, [reader(i) for i in range(len(ns))])
+    ex.step()
+    ex.flush()   # warm-up
+    emitted = 0
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(RATE_STEPS):
+        prev = ex.step()
+        emitted += 0 if prev is None else prev.size
+    emitted += ex.flush().size
+    dt = time.perf_counter() - t0
+    counts = launches()
+    ex_rate = emitted / dt / 1e6
+    if stream_rate is None:
+        ref = Transmitter(cfg, batch, device=dev, **kw)
+        ref.stream(one(0))
+        t0 = time.perf_counter()
+        total = sum(ref.stream(one(1 + k)).size for k in range(RATE_STEPS))
+        stream_rate = total / (time.perf_counter() - t0) / 1e6
+        label = "stream"
+    else:
+        label = "stream_window (phase 7)"
+    want = {"ldpc_parity": RATE_STEPS * len(ns), "ifft_gi": RATE_STEPS}
+    require(counts == want, f"rate {name}: launches {counts}, expected {want}")
+    print(f"executor {name} batch {batch}: {RATE_STEPS} steps, "
+          f"{emitted} samples emitted in {dt:.4f} s = {ex_rate:.2f} "
+          f"Msamples/s (pinned asynchronous copy included); {label} "
+          f"{stream_rate:.2f} Msamples/s (pageable copy included); "
+          f"launches {counts}")
+    return counts
+
+
+def pinned_cost(torch) -> None:
+    """What the executor's pinned buffers cost: a fresh pinned allocation
+    of one vv009 batch-256 step (the price when the caller keeps every
+    array) against one from the caching host allocator (the price when
+    the caller lets the previous one go)."""
+    from dvbt2ll_tpu_torch import vv009_config
+    nbytes = BATCH * vv009_config().samples_per_frame * 8
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        times.append((time.perf_counter() - t0) * 1e3)
+        del buf
+    print(f"pinned host buffer of {nbytes} bytes: fresh {times[0]:.4f} ms, "
+          f"from the cache {times[1]:.4f} ms")
 
 
 def main() -> int:
@@ -308,6 +582,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    from dvbt2ll_tpu_torch import min_batch_frames, named_config
     from dvbt2ll_tpu_torch.ops import _build
     from dvbt2ll_tpu_torch.profile_step import card_line
 
@@ -330,7 +605,20 @@ def main() -> int:
                                                STREAM_STEPS),
              "8k_normal": full_width_phase(torch, dev, "8k_normal",
                                            STEPS_8K),
-             "multiplp_fef": multiplp_phase(torch, dev)}
+             "32k_extended": full_width_phase(torch, dev, "32k_extended",
+                                              STEPS_32K)}
+    paths["multiplp_fef"], mplp_rate = multiplp_phase(torch, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths["executor"] = executor_phase(torch, dev)
+        paths["paced"] = paced_phase(torch, dev, tmp)
+        app_phase(torch, dev, tmp)
+    pinned_cost(torch)   # before any batch-256 pinned buffer is cached
+    paths["executor_vv009_4kshort"] = rate_phase(
+        torch, dev, "vv009_4kshort", BATCH, strict=False)
+    paths["executor_multiplp_fef"] = rate_phase(
+        torch, dev, "multiplp_fef",
+        3 * min_batch_frames(named_config("multiplp_fef")), strict=True,
+        stream_rate=mplp_rate)
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in paths.items()}

@@ -9,11 +9,14 @@ package's numpy modules without importing jax.  This package imports
 from ._host.io import synthetic_ts
 from .config import T2Config, named_config, vv009_config
 from .convert import plan_tensors
-from .pipeline import Transmitter, bb_and_fec, transmit_step_iq_planar
+from .executor import StreamingExecutor
+from .pipeline import (Transmitter, bb_and_fec, transmit_step_iq,
+                       transmit_step_iq_planar)
 from .plan import TransmitPlan, build_plan, min_batch_frames
 
 __all__ = [
     "T2Config", "named_config", "vv009_config", "Transmitter",
     "TransmitPlan", "build_plan", "min_batch_frames", "plan_tensors",
-    "bb_and_fec", "transmit_step_iq_planar", "synthetic_ts",
+    "bb_and_fec", "transmit_step_iq", "transmit_step_iq_planar",
+    "StreamingExecutor", "synthetic_ts",
 ]

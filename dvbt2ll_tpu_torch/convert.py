@@ -35,11 +35,9 @@ class PlpTensors:
 
 
 @dataclasses.dataclass
-class PlanTensors:
-    """A plan's device constants for the planar step."""
+class PlanarTail:
+    """The planar step's frame and tail constants (re/im planes)."""
 
-    plan: object                    # host TransmitPlan
-    plps: list                      # [PlpTensors]
     l1pre_re: torch.Tensor          # (1840,) f32
     l1pre_im: torch.Tensor
     l1post_re: torch.Tensor         # (t2_frames, l1post cells) f32
@@ -52,6 +50,28 @@ class PlanTensors:
     pilot_t: torch.Tensor           # (S, N2, N1) f32
     eq_t: Optional[torch.Tensor]    # (1, N2, N1) f32 inverse sinc, or None
     ifft: tuple                     # factor_tensors(fft, scale)
+
+
+@dataclasses.dataclass
+class ComplexTail:
+    """The complex step's frame and tail constants (``_consts``)."""
+
+    l1pre: torch.Tensor             # (1840,) c64
+    l1post: torch.Tensor            # (t2_frames, l1post cells) c64
+    dummy: torch.Tensor             # (dummy cells,) c64
+    p1: torch.Tensor                # (2048,) c64
+    grid: torch.Tensor              # (S, fft) i64 gather into seq
+    pilot: torch.Tensor             # (S, fft) f32
+    eq: Optional[torch.Tensor]      # (fft,) f32 inverse sinc, or None
+
+
+@dataclasses.dataclass
+class PlanTensors:
+    """A plan's device constants: per PLP, and those of one OFDM tail."""
+
+    plan: object                    # host TransmitPlan
+    plps: list                      # [PlpTensors]
+    tail: object                    # PlanarTail or ComplexTail
 
 
 def _t(a, dtype, device) -> torch.Tensor:
@@ -79,8 +99,18 @@ def _plp_tensors(pp, device) -> PlpTensors:
     )
 
 
-def plan_tensors(plan, device) -> PlanTensors:
-    """Upload a plan's constants to ``device`` for the planar step."""
+def _seq_gather(plan) -> np.ndarray:
+    """``grid_src`` (S, fft) with every pilot/null position (-1) sent to
+    the trailing zero cell of the frame builder's cell sequence."""
+    cfg = plan.cfg
+    seq_len = (np.size(plan.l1pre) + np.shape(plan.l1post_all)[1]
+               + sum(pp.cfg.stream_cells for pp in plan.plps)
+               + np.size(plan.dummy) + cfg.n_fc - cfg.c_fc + 1)
+    src = np.asarray(plan.grid_src)
+    return np.where(src >= 0, src, seq_len - 1)
+
+
+def _planar_tail(plan, device) -> PlanarTail:
     cfg = plan.cfg
     fft = cfg.fft_points
     n2 = fft // N1
@@ -90,19 +120,11 @@ def plan_tensors(plan, device) -> PlanTensors:
     l1post = np.asarray(plan.l1post_all, np.complex64)
     dummy = np.asarray(plan.dummy, np.complex64)
     p1 = np.asarray(plan.p1, np.complex64)
-    # one trailing zero cell absorbs every pilot/null position (-1)
-    seq_len = (l1pre.size + l1post.shape[1]
-               + sum(pp.cfg.stream_cells for pp in plan.plps)
-               + dummy.size + cfg.n_fc - cfg.c_fc + 1)
-    src = np.asarray(plan.grid_src)
-    gather = np.where(src >= 0, src, seq_len - 1)[:, tidx]
     eq_t = None
     if plan.eq is not None:
         eq = np.broadcast_to(np.asarray(plan.eq, np.float32), (1, fft))
         eq_t = _t(eq[:, tidx], np.float32, device)
-    return PlanTensors(
-        plan=plan,
-        plps=[_plp_tensors(pp, device) for pp in plan.plps],
+    return PlanarTail(
         l1pre_re=_t(l1pre.real, np.float32, device),
         l1pre_im=_t(l1pre.imag, np.float32, device),
         l1post_re=_t(l1post.real, np.float32, device),
@@ -111,10 +133,34 @@ def plan_tensors(plan, device) -> PlanTensors:
         dummy_im=_t(dummy.imag, np.float32, device),
         p1_re=_t(p1.real, np.float32, device),
         p1_im=_t(p1.imag, np.float32, device),
-        grid_t=_t(gather, np.int64, device),
+        grid_t=_t(_seq_gather(plan)[:, tidx], np.int64, device),
         pilot_t=_t(np.asarray(plan.pilot_plane)[:, tidx], np.float32,
                    device),
         eq_t=eq_t,
         # 1/N of the inverse transform times the chain's N * ofdm_norm
         ifft=factor_tensors(fft, cfg.ofdm_normalization, device),
+    )
+
+
+def _complex_tail(plan, device) -> ComplexTail:
+    return ComplexTail(
+        l1pre=_t(plan.l1pre, np.complex64, device),
+        l1post=_t(plan.l1post_all, np.complex64, device),
+        dummy=_t(plan.dummy, np.complex64, device),
+        p1=_t(plan.p1, np.complex64, device),
+        grid=_t(_seq_gather(plan), np.int64, device),
+        pilot=_t(plan.pilot_plane, np.float32, device),
+        eq=None if plan.eq is None else _t(plan.eq, np.float32, device),
+    )
+
+
+def plan_tensors(plan, device, planar: bool) -> PlanTensors:
+    """Upload a plan's constants to ``device``: the per-PLP tables, and
+    the frame and tail constants of the planar step (``planar``) or of
+    the complex one, never both.  ``pipeline.select_step_iq`` says which
+    step a config runs."""
+    return PlanTensors(
+        plan=plan,
+        plps=[_plp_tensors(pp, device) for pp in plan.plps],
+        tail=(_planar_tail if planar else _complex_tail)(plan, device),
     )

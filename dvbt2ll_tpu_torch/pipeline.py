@@ -1,12 +1,14 @@
 """The DVB-T2 transmit chain on torch tensors: TS bytes -> baseband IQ.
 
-The counterpart of ``dvbt2ll_tpu/pipeline.py``, function for function, for
-the planar tail (1K-8K FFTs with a guard interval of whole 128-sample
-rows).  PyTorch runs eagerly: each function is the JAX one's body with
-torch ops, and the plan's constants come as device tensors that
+The counterpart of ``dvbt2ll_tpu/pipeline.py``, function for function.
+PyTorch runs eagerly: each function is the JAX one's body with torch ops,
+and the plan's constants come as device tensors that
 ``convert.plan_tensors`` uploads once (the JAX package bakes them into
-its compiled step instead).  On a CUDA tensor the LDPC parity and the
-OFDM tail run the hand-written kernels of ``ops/ldpc.py`` and
+its compiled step instead).  Two OFDM tails, chosen by ``select_step_iq``:
+the planar one (1K-8K FFTs with a guard interval of whole 128-sample
+rows) and the complex one (``torch.fft``, every other geometry: 16K, 32K
+and odd guard intervals).  On a CUDA tensor the LDPC parity and the
+planar tail run the hand-written kernels of ``ops/ldpc.py`` and
 ``ops/ifft.py``; a CPU tensor takes their plain twins.
 """
 from __future__ import annotations
@@ -146,6 +148,7 @@ def frame_grids(tp: PlanTensors, ts_padded, frame_idx0: int):
     plan = tp.plan
     cfg = plan.cfg
     b = plan.batch_frames
+    t = tp.tail
 
     res, ims = [], []
     for pt, w in zip(tp.plps, _as_windows(plan, ts_padded)):
@@ -158,16 +161,16 @@ def frame_grids(tp: PlanTensors, ts_padded, frame_idx0: int):
     idx = torch.arange(frame_idx0, frame_idx0 + b,
                        device=pay_re.device) % cfg.t2_frames
     zeros = pay_re.new_zeros(b, cfg.n_fc - cfg.c_fc + 1)
-    seq_re = torch.cat([tp.l1pre_re.expand(b, -1), tp.l1post_re[idx],
-                        pay_re, tp.dummy_re.expand(b, -1), zeros], dim=1)
-    seq_im = torch.cat([tp.l1pre_im.expand(b, -1), tp.l1post_im[idx],
-                        pay_im, tp.dummy_im.expand(b, -1), zeros], dim=1)
+    seq_re = torch.cat([t.l1pre_re.expand(b, -1), t.l1post_re[idx],
+                        pay_re, t.dummy_re.expand(b, -1), zeros], dim=1)
+    seq_im = torch.cat([t.l1pre_im.expand(b, -1), t.l1post_im[idx],
+                        pay_im, t.dummy_im.expand(b, -1), zeros], dim=1)
 
-    g_re = seq_re[:, tp.grid_t] + tp.pilot_t                # (B, S, n2, N1)
-    g_im = seq_im[:, tp.grid_t]
-    if tp.eq_t is not None:
-        g_re = g_re * tp.eq_t
-        g_im = g_im * tp.eq_t
+    g_re = seq_re[:, t.grid_t] + t.pilot_t                  # (B, S, n2, N1)
+    g_im = seq_im[:, t.grid_t]
+    if t.eq_t is not None:
+        g_re = g_re * t.eq_t
+        g_im = g_im * t.eq_t
     return g_re, g_im
 
 
@@ -176,13 +179,14 @@ def ofdm_tail(tp: PlanTensors, g_re: torch.Tensor,
     """Transposed grids -> (B, samples, 2) f32 I/Q: the 4-step IFFT with
     its guard interval (``ops/ifft.py::ifft_gi``), after P1."""
     cfg = tp.plan.cfg
+    t = tp.tail
     b = g_re.shape[0]
     body_re, body_im = ifft_gi(g_re, g_im, cfg.fft_points,
                                cfg.guard_samples, cfg.ofdm_normalization,
-                               tp.ifft)
-    out_re = torch.cat([tp.p1_re.expand(b, -1), body_re.reshape(b, -1)],
+                               t.ifft)
+    out_re = torch.cat([t.p1_re.expand(b, -1), body_re.reshape(b, -1)],
                        dim=1)
-    out_im = torch.cat([tp.p1_im.expand(b, -1), body_im.reshape(b, -1)],
+    out_im = torch.cat([t.p1_im.expand(b, -1), body_im.reshape(b, -1)],
                        dim=1)
     return torch.stack([out_re, out_im], dim=-1)
 
@@ -198,16 +202,73 @@ def transmit_step_iq_planar(tp: PlanTensors, ts_padded,
     return ofdm_tail(tp, *frame_grids(tp, ts_padded, frame_idx0))
 
 
+def build_frames(tp: PlanTensors, payload: torch.Tensor,
+                 frame_idx0: int) -> torch.Tensor:
+    """Raw mapper cells (B, total_stream) c64 -> OFDM grids (B, S, fft)
+    c64: L1, payload and dummy cells, then one gather over the natural
+    ``grid_src`` (which composes the cell, time and frequency interleavers
+    and the carrier map), then the pilot plane."""
+    cfg = tp.plan.cfg
+    t = tp.tail
+    b = payload.shape[0]
+    idx = torch.arange(frame_idx0, frame_idx0 + b,
+                       device=payload.device) % cfg.t2_frames
+    # one trailing zero cell absorbs every pilot/null position (-1)
+    seq = torch.cat([t.l1pre.expand(b, -1), t.l1post[idx], payload,
+                     t.dummy.expand(b, -1),
+                     payload.new_zeros(b, cfg.n_fc - cfg.c_fc + 1)], dim=1)
+    return seq[:, t.grid] + t.pilot
+
+
+def ofdm_symbols(tp: PlanTensors, grids: torch.Tensor) -> torch.Tensor:
+    """(B, S, fft) grids -> (B, S * (fft + gi)) c64 OFDM symbols: the
+    optional inverse sinc, the IFFT scaled by fft * ofdm_normalization,
+    and the guard interval as a copy of each symbol's last gi samples."""
+    cfg = tp.plan.cfg
+    fft = cfg.fft_points
+    gi = cfg.guard_samples
+    if tp.tail.eq is not None:
+        grids = grids * tp.tail.eq
+    sym = torch.fft.ifft(grids, dim=-1) * (fft * cfg.ofdm_normalization)
+    with_gi = torch.cat([sym[..., fft - gi:], sym], dim=-1)
+    return with_gi.reshape(grids.shape[0], -1)
+
+
+def modulate(tp: PlanTensors, grids: torch.Tensor) -> torch.Tensor:
+    """(B, S, fft) grids -> (B, samples_per_frame) c64 IQ, after P1."""
+    b = grids.shape[0]
+    return torch.cat([tp.tail.p1.expand(b, -1), ofdm_symbols(tp, grids)],
+                     dim=1)
+
+
+def transmit_step(tp: PlanTensors, ts_padded,
+                  frame_idx0: int) -> torch.Tensor:
+    """Padded TS windows (one per PLP) -> (B, samples) c64: FEC and the
+    mapper per PLP, then the complex frame builder and tail."""
+    plan = tp.plan
+    payloads = [map_cells(pt, bb_and_fec(pt, w)).reshape(
+        plan.batch_frames, pt.pp.cfg.stream_cells)
+        for pt, w in zip(tp.plps, _as_windows(plan, ts_padded))]
+    payload = (payloads[0] if len(payloads) == 1
+               else torch.cat(payloads, dim=1))
+    return modulate(tp, build_frames(tp, payload, frame_idx0))
+
+
+def transmit_step_iq(tp: PlanTensors, ts_padded,
+                     frame_idx0: int) -> torch.Tensor:
+    """Like ``transmit_step`` but (B, samples, 2) f32 I/Q: on either
+    device complex64 is interleaved (re, im), so this is a view."""
+    return torch.view_as_real(transmit_step(tp, ts_padded, frame_idx0))
+
+
 def select_step_iq(cfg: T2Config):
-    """The step function for ``cfg``: the planar tail where ``supported``
-    holds.  Other geometries (16K/32K, guard intervals under 128 samples)
-    need the complex ``torch.fft`` tail, a later slice."""
-    if not supported(cfg.fft_points, cfg.guard_samples):
-        raise NotImplementedError(
-            f"FFT {cfg.fft_points} with GI {cfg.guard_samples} samples needs "
-            f"the complex torch.fft tail (ROADMAP.md queue A, 'the complex "
-            f"tail'), not ported yet")
-    return transmit_step_iq_planar
+    """The planar/complex tail decision, in one place: returns
+    (step_fn, planar).  The planar tail where ``ops/ifft.py::supported``
+    holds, the complex ``torch.fft`` tail everywhere else.  Every
+    transmitter of the port takes its step, and ``plan_tensors`` its
+    constants, from this choice."""
+    planar = supported(cfg.fft_points, cfg.guard_samples)
+    return (transmit_step_iq_planar if planar else transmit_step_iq), planar
 
 
 class Transmitter:
@@ -226,13 +287,13 @@ class Transmitter:
             raise RuntimeError(f"device {self.device} asked for, but "
                                f"torch.cuda.is_available() is False")
         self.cfg = cfg
-        self._step_fn = select_step_iq(cfg)
+        self._step_fn, planar = select_step_iq(cfg)
         # start_phases: TS byte phase at the step start (build_plan)
         plan = build_plan(cfg, batch_frames, strict=strict,
                           start_phases=start_phases)
         self.plan = plan
         set_full_fp32_matmul()
-        self.tensors = plan_tensors(plan, self.device)
+        self.tensors = plan_tensors(plan, self.device, planar)
         self._carries = [np.zeros(187, dtype=np.uint8) for _ in plan.plps]
         self._frame_idx = 0
         self._steps_done = 0

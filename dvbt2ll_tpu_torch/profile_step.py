@@ -2,29 +2,38 @@
 
     python -m dvbt2ll_tpu_torch.profile_step
 
-For vv009 at each batch of 64, 128, 256 and 512 frames, and 8k_normal at
-batch 256: ``Transmitter.step_device`` timed on the host clock and fenced
-(window staging and host-to-device copy included), the step function
-alone on a window already on the device (CUDA events), and the peak
-device memory.  Then, for both at batch 256, each part of the device
-step alone (CUDA events): ``bb_and_fec``, ``map_cells_planes``, the rest
-of the frame builder, the OFDM tail kernel (and its plain twin on the
-same grids), and P1 with the I/Q interleave.  Last, a ``torch.profiler``
-table of device time by operator over 5 vv009 ``step_device`` steps.
-The ratio of the device step to ``step_device`` is printed as an
-estimate of the device's busy share: two clocks, not a trace.
+For vv009 at each batch of 64, 128, 256 and 512 frames, and 8k_normal and
+32k_extended at batch 256: ``Transmitter.step_device`` timed on the host
+clock and fenced (window staging and host-to-device copy included), the
+step function alone on a window already on the device (CUDA events), and
+the peak device memory.  Then, at batch 256, each part of the device step
+alone (CUDA events): for vv009 and 8k_normal (the planar tail)
+``bb_and_fec``, ``map_cells_planes``, the rest of the frame builder, the
+OFDM tail kernel (and its plain twin on the same grids), and P1 with the
+I/Q interleave; for 32k_extended (the complex tail) ``bb_and_fec``,
+``map_cells``, ``build_frames``, the ``torch.fft`` tail with its guard
+interval, and P1 with ``view_as_real``.  Then a ``torch.profiler`` table
+of device time by operator over 5 vv009 ``step_device`` steps, and
+``StreamingExecutor`` at vv009 batch 256 under ``profile_trace``: its
+wall time against the device time of its kernels and of its copies.  The
+ratio of the device step to ``step_device`` is printed as an estimate of
+the device's busy share: two clocks, not a trace.
 """
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from . import Transmitter, named_config, synthetic_ts
+from . import StreamingExecutor, Transmitter, named_config, synthetic_ts
+from .observability import profile_trace
 from .ops.ifft import ifft_gi, ifft_gi_einsum
-from .pipeline import (bb_and_fec, frame_grids, map_cells_planes, ofdm_tail,
-                       transmit_step_iq_planar)
+from .pipeline import (bb_and_fec, build_frames, frame_grids, map_cells,
+                       map_cells_planes, modulate, ofdm_symbols, ofdm_tail,
+                       transmit_step_iq, transmit_step_iq_planar)
 
 BATCHES = (64, 128, 256, 512)
 BATCH = 256            # the JAX package's bench default (bench.py:174)
@@ -79,8 +88,7 @@ def sweep(name: str, batch: int) -> None:
         tx.step_device(ts[i % 4])
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / STEPS * 1e3
-    dev_ms = cuda_ms(
-        lambda: transmit_step_iq_planar(tx.tensors, window, 0))
+    dev_ms = cuda_ms(lambda: tx._step_fn(tx.tensors, window, 0))
     print(f"{name} batch {batch}: step_device {host_ms:.3f} ms = "
           f"{samples / host_ms / 1e3:.1f} Msamples/s; device step "
           f"{dev_ms:.3f} ms = {samples / dev_ms / 1e3:.1f} Msamples/s; "
@@ -98,7 +106,7 @@ def stages(name: str, batch: int) -> None:
     grids = cuda_ms(lambda: frame_grids(tp, window, 0))
     g_re, g_im = frame_grids(tp, window, 0)
     args = (g_re, g_im, cfg.fft_points, cfg.guard_samples,
-            cfg.ofdm_normalization, tp.ifft)
+            cfg.ofdm_normalization, tp.tail.ifft)
     tail = cuda_ms(lambda: ifft_gi(*args))
     plain = cuda_ms(lambda: ifft_gi_einsum(*args))
     after = cuda_ms(lambda: ofdm_tail(tp, g_re, g_im))
@@ -109,6 +117,69 @@ def stages(name: str, batch: int) -> None:
           f"{grids - fec - mapper:.4f}, tail kernel {tail:.4f} (plain twin "
           f"{plain:.4f}), P1 + I/Q interleave {after - tail:.4f}; whole "
           f"step {whole:.4f} = {samples / whole / 1e3:.1f} Msamples/s")
+
+
+def stages_complex(name: str, batch: int) -> None:
+    tx, _, window = _setup(name, batch)
+    tp = tx.tensors
+    pt = tp.plps[0]
+    bits = bb_and_fec(pt, window)
+    fec = cuda_ms(lambda: bb_and_fec(pt, window))
+    mapper = cuda_ms(lambda: map_cells(pt, bits))
+    payload = map_cells(pt, bits).reshape(batch, -1)
+    frames = cuda_ms(lambda: build_frames(tp, payload, 0))
+    grids = build_frames(tp, payload, 0)
+    tail = cuda_ms(lambda: ofdm_symbols(tp, grids))
+    after = cuda_ms(lambda: torch.view_as_real(modulate(tp, grids)))
+    whole = cuda_ms(lambda: transmit_step_iq(tp, window, 0))
+    samples = batch * tx.cfg.samples_per_frame
+    print(f"{name} batch {batch} device ms: bb_and_fec {fec:.4f}, "
+          f"map_cells {mapper:.4f}, build_frames {frames:.4f}, torch.fft "
+          f"tail with GI {tail:.4f}, P1 + view_as_real {after - tail:.4f}; "
+          f"whole step {whole:.4f} = {samples / whole / 1e3:.1f} "
+          f"Msamples/s")
+
+
+def executor_trace(name: str, batch: int, steps: int = 10) -> None:
+    """``StreamingExecutor`` under ``profile_trace``: wall time against
+    the device time of the kernels and of the memory copies.  Kernel
+    plus copy time above the wall time means the copies overlapped the
+    compute."""
+    tx, ts, _ = _setup(name, batch)
+    k = {"i": 0}
+
+    def source(nbytes):
+        k["i"] += 1
+        return ts[k["i"] % 4]
+
+    ex = StreamingExecutor(tx, source)
+    ex.step()
+    ex.flush()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as logdir:
+        with profile_trace(logdir) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                ex.step()
+            ex.flush()
+            wall = (time.perf_counter() - t0) * 1e3
+        files = os.listdir(logdir)
+        size = sum(os.path.getsize(os.path.join(logdir, f)) for f in files)
+    kern = copy = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # host operators: their kernels are counted here
+        ms = ev.self_device_time_total / 1e3
+        if ev.key.startswith("Memcpy"):
+            copy += ms
+        else:
+            kern += ms
+    samples = steps * batch * tx.cfg.samples_per_frame
+    print(f"executor {name} batch {batch}, {steps} steps under "
+          f"profile_trace ({len(files)} trace file, {size} bytes): wall "
+          f"{wall:.3f} ms = {samples / wall / 1e3:.1f} Msamples/s; device "
+          f"kernels {kern:.3f} ms, memory copies {copy:.3f} ms; busy share "
+          f"of kernels {kern / wall:.3f}, of copies {copy / wall:.3f}")
 
 
 def operators(name: str, batch: int) -> None:
@@ -136,9 +207,12 @@ def main() -> int:
     for batch in BATCHES:
         sweep("vv009_4kshort", batch)
     sweep("8k_normal", BATCH)
+    sweep("32k_extended", BATCH)
     for name in ("vv009_4kshort", "8k_normal"):
         stages(name, BATCH)
+    stages_complex("32k_extended", BATCH)
     operators("vv009_4kshort", BATCH)
+    executor_trace("vv009_4kshort", BATCH)
     return 0
 
 

@@ -1,10 +1,10 @@
 """The port's ``Transmitter`` on the CPU against vectors the unmodified
 reference C++ produced (``tests/golden_ref``, see
-tests/test_reference_golden.py), for every planar configuration (1K-8K
-FFTs, guard intervals of whole 128-sample rows): FEC bits exact, mapper
-cells within atol 2e-6, IQ above 100 dB SNR - the JAX package's own
-bars.  The 16K/32K goldens and t2lite_8k_t2gi_miso (GI 1216) need the
-complex tail, a later slice."""
+tests/test_reference_golden.py), for every golden: the planar tail's
+(1K-8K FFTs, guard intervals of whole 128-sample rows) and the complex
+tail's (16K, 32K, and the 1216-sample guard interval of
+t2lite_8k_t2gi_miso).  FEC bits exact, mapper cells within atol 2e-6, IQ
+above 100 dB SNR - the JAX package's own bars."""
 import dataclasses
 import importlib.util
 import os
@@ -21,7 +21,10 @@ from dvbt2ll_tpu_torch.pipeline import bb_and_fec, map_cells
 _DIR = os.path.join(os.path.dirname(__file__), "golden_ref")
 _NAMES = ["vv009_4kshort", "8k_normal", "hieff_4k", "inband_2k",
           "8k_miso_tx1", "8k_miso_tx2", "1k_pp4", "qpsk_short_c13",
-          "ti_off_4k", "t2lite_4k", "v121_4k", "eq_2k_5mhz"]
+          "ti_off_4k", "t2lite_4k", "v121_4k", "eq_2k_5mhz",
+          # the complex tail
+          "32k_extended", "32k_papr_tr", "16k_l1qpsk_both",
+          "t2lite_16k_t2gi", "t2lite_8k_t2gi_miso"]
 
 
 @pytest.fixture(autouse=True)
@@ -70,13 +73,15 @@ def test_named_config_matches_bench(bench, name):
 
 
 def test_registry_is_whole():
-    """Every golden has a named config, every planar golden is a case
-    here, and an unknown name raises."""
+    """Every golden has a named config and is a case here, on both tails,
+    and an unknown name raises."""
     goldens = {f[:-4] for f in os.listdir(_DIR) if f.endswith(".npz")}
     assert goldens < set(NAMED_CONFIGS)
-    cfgs = {n: named_config(n) for n in goldens}
-    assert set(_NAMES) == {n for n, c in cfgs.items()
-                           if supported(c.fft_points, c.guard_samples)}
+    assert set(_NAMES) == goldens and len(_NAMES) == len(goldens)
+    planar = {n for n in goldens
+              if supported(named_config(n).fft_points,
+                           named_config(n).guard_samples)}
+    assert 0 < len(planar) < len(goldens)
     with pytest.raises(ValueError, match="unknown"):
         named_config("no_such_config")
 

@@ -44,7 +44,7 @@ def case(request):
     window = np.concatenate([np.full(187, 0x5A, np.uint8), ts])
     bits = np.array(jax.jit(functools.partial(
         jpipe.bb_and_fec, plan.plps[0]))(jnp.asarray(window)))
-    return plan, plan_tensors(plan, "cpu"), window, bits
+    return plan, plan_tensors(plan, "cpu", planar=True), window, bits
 
 
 def test_bb_and_fec_matches_jax(case):

@@ -6,17 +6,21 @@ import os
 import subprocess
 import sys
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from dvbt2ll_tpu import pipeline as jpipe
 from dvbt2ll_tpu.config import vv009_config as jax_vv009_config
 from dvbt2ll_tpu.io import synthetic_ts
 from dvbt2ll_tpu.pipeline import Transmitter as JaxTransmitter
 from dvbt2ll_tpu.plan import build_plan as jax_build_plan
 from dvbt2ll_tpu_torch import (Transmitter, build_plan, min_batch_frames,
                                named_config, plan_tensors, vv009_config)
+from dvbt2ll_tpu_torch.config import FFTSize
 from dvbt2ll_tpu_torch.ops.ldpc import LdpcSchedule
+from dvbt2ll_tpu_torch.pipeline import select_step_iq
 
 _ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 
@@ -107,11 +111,12 @@ def test_save_restore_round_trip(jax_run, tmp_path):
 
 
 def _assert_same_tensors(a, b):
+    assert type(a) is type(b)
     for f in dataclasses.fields(a):
         x, y = getattr(a, f.name), getattr(b, f.name)
         if isinstance(x, torch.Tensor):
             assert x.dtype == y.dtype and torch.equal(x, y), f.name
-        elif isinstance(x, LdpcSchedule):
+        elif isinstance(x, LdpcSchedule) or f.name == "tail":
             _assert_same_tensors(x, y)
         elif isinstance(x, tuple) and x and isinstance(x[0], torch.Tensor):
             assert all(torch.equal(u, v) for u, v in zip(x, y)), f.name
@@ -122,11 +127,14 @@ def _assert_same_tensors(a, b):
             assert y is None, f.name
 
 
-@pytest.mark.parametrize("name", ["vv009_4kshort", "8k_normal"])
+@pytest.mark.parametrize("name", ["vv009_4kshort", "8k_normal",
+                                  "32k_extended", "t2lite_8k_t2gi_miso"])
 def test_plan_tensors_of_jax_plan_equal_the_ports(name):
     cfg = named_config(name)
-    ours = plan_tensors(build_plan(cfg, 2, strict=False), "cpu")
-    theirs = plan_tensors(jax_build_plan(cfg, 2, strict=False), "cpu")
+    planar = select_step_iq(cfg)[1]
+    ours = plan_tensors(build_plan(cfg, 2, strict=False), "cpu", planar)
+    theirs = plan_tensors(jax_build_plan(cfg, 2, strict=False), "cpu",
+                          planar)
     _assert_same_tensors(ours, theirs)
 
 
@@ -143,10 +151,38 @@ def test_refusals():
                         device="cpu")
     drift(ts)
     drift(ts)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Transmitter(dataclasses.replace(
-            cfg, fft_size=type(cfg.fft_size).FFT_32K).validate(), 1,
-            strict=False, device="cpu")
+
+
+def test_32k_strict_steps_match_jax_eager():
+    """A 32K transmitter streams two strict steps (the carry between them
+    included) equal to the JAX stage functions called eagerly on the same
+    windows: above 120 dB, state equal to the JAX ``Transmitter``'s
+    bookkeeping.  Short frames, one FEC block a frame, so the smallest
+    streamable batch (47 frames) stays small."""
+    cfg = dataclasses.replace(vv009_config(), fft_size=FFTSize.FFT_32K,
+                              fec_blocks=1, ti_blocks=1).validate()
+    b = min_batch_frames(cfg)
+    tx = Transmitter(cfg, b, strict=True, device="cpu")
+    assert not select_step_iq(cfg)[1]
+    plan = jax_build_plan(cfg, b, strict=True)
+    pp = plan.plps[0]
+    carry = np.zeros(187, np.uint8)
+    for step in range(2):
+        ts = synthetic_ts(tx.bytes_per_step, seed=70 + step)
+        window = jnp.asarray(np.concatenate([carry, ts]))
+        cells = jpipe.map_cells(pp, jpipe.bb_and_fec(pp, window))
+        grids = jpipe.build_frames(plan, cells.reshape(b, -1),
+                                   jnp.int32(step * b % cfg.t2_frames))
+        want = np.asarray(jpipe.modulate(plan, grids))
+        got = tx(ts)
+        assert got.shape == want.shape == (b, cfg.samples_per_frame)
+        snr = _snr_db(want, got)
+        assert snr > 120, f"step {step}: {snr:.1f} dB"
+        carry = ts[-187:]
+    state = tx.state_dict()
+    np.testing.assert_array_equal(state["carries"][0], carry)
+    assert state["frame_idx"] == 2 * b % cfg.t2_frames
+    assert state["steps_done"] == 2
 
 
 def test_cuda_device_without_a_card_raises():
@@ -161,6 +197,9 @@ def test_port_never_imports_jax():
         "import sys\n"
         "import dvbt2ll_tpu_torch as p\n"
         "import dvbt2ll_tpu_torch.ops._build, dvbt2ll_tpu_torch.ops.ifft\n"
+        "import dvbt2ll_tpu_torch.executor\n"
+        "import dvbt2ll_tpu_torch.apps.vv009_4kshort\n"
+        "from dvbt2ll_tpu_torch.observability import profile_trace\n"
         "tx = p.Transmitter(p.vv009_config(), 1, strict=False, "
         "device='cpu')\n"
         "tx(p.synthetic_ts(tx.bytes_per_step))\n"
