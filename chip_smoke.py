@@ -38,10 +38,27 @@ imports no JAX.  Phases, each of which raises on failure:
    included); the app ``dvbt2ll_tpu_torch.apps.vv009_4kshort`` as a
    subprocess on the card against the port on the CPU; and the
    executor's emitted rate, device-to-host copy included, for vv009 at
-   batch 256 and multiplp_fef, beside ``stream``/``stream_window``.
+   batch 256 and multiplp_fef, beside ``stream``/``stream_window``;
+9. the multi-device layer (``dvbt2ll_tpu_torch.parallel``): (a) BASELINE
+   config 5 at full width, vv009 as 8 independent muxes in the
+   valid-stream mode, a (mux 8, frame 2) ``ShardedTransmitter`` over 16
+   slots of the card, 47 frames a shard, strict, 2 steps of 752 frames:
+   each mux bit-identical to its own strict ``Transmitter`` of 47 frames
+   streamed over 4 steps, both kernels launched 16 times a step, and the
+   aggregate rate beside one ``Transmitter`` of 752 frames (information,
+   not a claim); (b) a heterogeneous ``MultiMuxTransmitter``, a vv009
+   group of 2 muxes (planar tail) beside a 32k_extended group (complex
+   tail, drift mode), each channel bit-identical to its standalone
+   ``ShardedTransmitter`` and a checkpoint round trip reproducing the
+   next step; (c) the symbol-sharded back-end at 32k_extended, 1 frame
+   over 4 slots, bit-identical to ``transmit_step_iq``; (d)
+   ``dryrun_multichip``, ``dryrun_multihost`` as two processes sharing
+   the card, and the multi-mux app as a subprocess with two ``--config``
+   files; (e) with two or more cards, (a) over the real cards with no
+   peer-to-peer copy in a profiled step, else a line saying why not.
 
 The kernel launch counts are set to 0 just before each path of phases
-5-8 and read just after.  Prints the kernel table as one JSON line, then,
+5-9 and read just after.  Prints the kernel table as one JSON line, then,
 as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero,
 without that line, when there is no CUDA device or any phase fails.
 """
@@ -83,6 +100,10 @@ TAIL_CASES = (((BATCH, 7), 4096, 128, "vv009_4kshort"),
               ((16, 8), 1024, 128, None), ((16, 8), 1024, 256, None),
               ((16, 8), 2048, 256, None), ((16, 8), 4096, 1024, None),
               ((16, 8), 8192, 2048, None))
+SHARD_MUX = 8          # BASELINE.json config 5: 8+ independent channels
+SHARD_FRAME = 2
+SHARD_STEPS = 2
+SYMBOL_SLOTS = 4
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -576,6 +597,274 @@ def pinned_cost(torch) -> None:
           f"from the cache {times[1]:.4f} ms")
 
 
+def sync(torch, devices) -> None:
+    for d in {torch.device(d) for d in devices}:
+        torch.cuda.synchronize(d)
+
+
+def same_blocks(torch, got, want, what: str) -> None:
+    """Two ``step_device`` block lists, bit for bit, each block on its
+    slot's device."""
+    for c, (g_row, w_row) in enumerate(zip(got, want)):
+        for s, (g, w) in enumerate(zip(g_row, w_row)):
+            require(g.device == w.device and torch.equal(g, w),
+                    f"{what}: block ({c}, {s}) differs")
+
+
+def sharded_phase(torch, slots, label: str) -> tuple:
+    """BASELINE config 5 at full width: vv009 as SHARD_MUX independent
+    muxes, strict at 47 frames a shard, over a (SHARD_MUX, SHARD_FRAME)
+    mesh of ``slots``; each mux held bit for bit against its own strict
+    ``Transmitter`` of 47 frames on the block's device."""
+    from dvbt2ll_tpu_torch import (ShardedTransmitter, Transmitter,
+                                   make_mesh, min_batch_frames, synthetic_ts,
+                                   vv009_config)
+    cfg = vv009_config()
+    b = min_batch_frames(cfg)
+    mesh = make_mesh(slots, mux=SHARD_MUX)
+    require(mesh.shape == {"mux": SHARD_MUX, "frame": SHARD_FRAME},
+            f"{label}: mesh {mesh.shape}")
+    stx = ShardedTransmitter(cfg, mesh, n_mux=SHARD_MUX, frames_per_shard=b)
+    n = stx.bytes_per_step_per_mux
+    ts = np.stack([synthetic_ts(SHARD_STEPS * n, seed=SEED + 500 + c)
+                   for c in range(SHARD_MUX)])
+    devices = mesh.local_devices()
+    for d in devices:  # a card's first step loads its libraries: not timed
+        warm = Transmitter(cfg, b, strict=True, device=d)
+        warm.step_device(np.zeros(warm.bytes_per_step, np.uint8))
+    sync(torch, devices)
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = [stx.step_device(ts[:, k * n:(k + 1) * n])
+            for k in range(SHARD_STEPS)]
+    sync(torch, devices)
+    dt = time.perf_counter() - t0
+    counts = launches()
+    blocks = SHARD_MUX * SHARD_FRAME
+    want = {"ldpc_parity": blocks * SHARD_STEPS,
+            "ifft_gi": blocks * SHARD_STEPS}
+    require(counts == want, f"{label}: launches {counts} in {SHARD_STEPS} "
+            f"steps of {blocks} blocks, expected {want}")
+
+    for c in range(SHARD_MUX):
+        tx = Transmitter(cfg, b, strict=True, device=mesh.devices[c, 0])
+        m = tx.bytes_per_step
+        for k in range(SHARD_STEPS):
+            for s in range(SHARD_FRAME):
+                o = outs[k][c][s]
+                require(o.device == mesh.devices[c, s],
+                        f"{label}: block ({c}, {s}) on {o.device}")
+                i = k * SHARD_FRAME + s
+                ref = tx.step_device(ts[c, i * m:(i + 1) * m])
+                require(torch.equal(o, ref.to(o.device)),
+                        f"{label}: mux {c} step {k} shard {s} differs from "
+                        f"its sequential Transmitter")
+    require(bool(all(torch.isfinite(o).all() for row in outs[-1]
+                     for o in row)), f"{label}: non-finite IQ")
+    state = stx.state_dict()
+    require(np.array_equal(state["carries"][:, 0], ts[:, -187:])
+            and state["step_no"] % cfg.t2_frames
+            == SHARD_STEPS % cfg.t2_frames,
+            f"{label}: state {state['step_no']}")
+
+    frames = SHARD_MUX * stx.frames_per_step   # a step, all muxes
+    rate = SHARD_STEPS * frames * cfg.samples_per_frame / dt / 1e6
+    # one Transmitter of the same total frames a step (752 = 16 x 47,
+    # phase-invariant)
+    one = Transmitter(cfg, frames, strict=True, device=devices[0])
+    one_ts = synthetic_ts((1 + SHARD_STEPS) * one.bytes_per_step,
+                          seed=SEED + 600)
+    one.step_device(one_ts[:one.bytes_per_step])   # warm-up, new shapes
+    sync(torch, devices)
+    t0 = time.perf_counter()
+    for k in range(1, 1 + SHARD_STEPS):
+        one.step_device(one_ts[k * one.bytes_per_step:
+                               (k + 1) * one.bytes_per_step])
+    sync(torch, devices)
+    one_rate = (SHARD_STEPS * frames * cfg.samples_per_frame
+                / (time.perf_counter() - t0) / 1e6)
+    print(f"{label}: vv009 x {SHARD_MUX} muxes, mesh {mesh.shape} over "
+          f"{len(slots)} slots of {[str(d) for d in devices]}, {b} frames "
+          f"a shard, strict, {SHARD_STEPS} steps of {frames} frames "
+          f"({frames * cfg.samples_per_frame * 8 / 1e6:.1f} MB of IQ a "
+          f"step): every mux bit-identical to its own strict Transmitter "
+          f"of {b} frames over {SHARD_STEPS * SHARD_FRAME} steps; launches "
+          f"{counts} ({blocks} of each kernel a step); aggregate "
+          f"{rate:.2f} Msamples/s ({SHARD_STEPS} steps in {dt:.4f} s, host "
+          f"staging included) beside one Transmitter of {frames} frames "
+          f"at {one_rate:.2f} Msamples/s (information, not a claim)")
+    return counts, stx, ts
+
+
+def no_peer_copies(torch, stx, ts) -> None:
+    """One more step of ``stx`` under torch.profiler: device activity
+    recorded, and no peer-to-peer memcpy among it."""
+    from torch.profiler import ProfilerActivity, profile
+    n = stx.bytes_per_step_per_mux
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        stx.step_device(ts[:, :n])
+        sync(torch, stx.mesh.local_devices())
+    events = prof.key_averages()
+    device_us = sum(e.self_device_time_total for e in events)
+    p2p = [e.key for e in events if "PtoP" in e.key]
+    require(device_us > 0, "profiled sharded step: no device time recorded")
+    require(not p2p, f"profiled sharded step: peer-to-peer copies {p2p}")
+    print(f"profiled sharded step over {len(stx.mesh.local_devices())} "
+          f"cards: {device_us:.1f} us of device time, no peer-to-peer "
+          f"memcpy")
+
+
+def multimux_phase(torch, dev, tmp: str) -> dict:
+    """A heterogeneous ``MultiMuxTransmitter`` on 6 slots of the card: a
+    vv009 group (2 muxes, strict at 47 frames a shard, planar tail) beside
+    a 32k_extended group (1 mux, 2 frames a shard, drift mode, complex
+    tail), 2 steps; each channel bit-identical to its standalone
+    ``ShardedTransmitter``, and a restored checkpoint reproducing step 2."""
+    from dvbt2ll_tpu_torch import (MultiMuxTransmitter, MuxChannel,
+                                   ShardedTransmitter, make_mesh,
+                                   min_batch_frames, named_config,
+                                   synthetic_ts, vv009_config)
+    cfg_a, cfg_b = vv009_config(), named_config("32k_extended")
+    b_a = min_batch_frames(cfg_a)
+    specs = [MuxChannel(cfg_a, n_mux=2, n_devices=4, frames_per_shard=b_a),
+             MuxChannel(cfg_b, n_mux=1, n_devices=2, frames_per_shard=2,
+                        strict=False, allow_phase_drift=True)]
+    slots = [dev] * 6
+    mm = MultiMuxTransmitter(specs, devices=slots)
+    na, nb = mm.bytes_per_step
+    steps = [[np.stack([synthetic_ts(na, seed=SEED + 700 + 10 * k + c)
+                        for c in range(2)]),
+              synthetic_ts(nb, seed=SEED + 800 + k)[None]] for k in range(2)]
+    path = os.path.join(tmp, "multimux.npz")
+    reset_launches()
+    out1 = mm.step_device(steps[0])
+    mm.save(path)
+    out2 = mm.step_device(steps[1])
+    sync(torch, [dev])
+    counts = {"multimux": launches()}
+    want = {"ldpc_parity": 2 * (4 + 2), "ifft_gi": 2 * 4}
+    require(counts["multimux"] == want, f"multimux: launches "
+            f"{counts['multimux']} in 2 steps, expected {want}")
+
+    refs = [ShardedTransmitter(cfg_a, make_mesh(slots[:4], mux=2), n_mux=2,
+                               frames_per_shard=b_a),
+            ShardedTransmitter(cfg_b, make_mesh(slots[4:], mux=1), n_mux=1,
+                               frames_per_shard=2, strict=False,
+                               allow_phase_drift=True)]
+    for i, (ref, name) in enumerate(zip(refs, ("multimux_vv009",
+                                               "multimux_32k"))):
+        reset_launches()
+        r1 = ref.step_device(steps[0][i])
+        r2 = ref.step_device(steps[1][i])
+        sync(torch, [dev])
+        counts[name] = launches()
+        same_blocks(torch, out1[i], r1, f"{name} step 1")
+        same_blocks(torch, out2[i], r2, f"{name} step 2")
+    require(counts["multimux_vv009"] == {"ldpc_parity": 8, "ifft_gi": 8}
+            and counts["multimux_32k"] == {"ldpc_parity": 4, "ifft_gi": 0},
+            f"multimux channels: launches {counts}")
+
+    mm2 = MultiMuxTransmitter(specs, devices=slots)
+    mm2.restore(path)
+    again = mm2.step_device(steps[1])
+    for i in range(2):
+        same_blocks(torch, again[i], out2[i], f"multimux restored ch{i}")
+    print(f"multimux on {len(slots)} slots of {dev}: vv009 (2 muxes x 2 "
+          f"shards x {b_a} frames, planar tail) + 32k_extended (1 mux x 2 "
+          f"shards x 2 frames, complex tail), 2 steps: each channel "
+          f"bit-identical to its standalone ShardedTransmitter; checkpoint "
+          f"after step 1 restored into a new transmitter reproduced step 2 "
+          f"bit for bit; launches {counts}")
+    return counts
+
+
+def symbol_sharded_phase(torch, dev) -> dict:
+    """32k_extended, 1 frame, the symbol axis over SYMBOL_SLOTS slots,
+    against the whole complex step on the card."""
+    from dvbt2ll_tpu_torch import (build_plan, grids_symbol_sharded,
+                                   make_mesh, named_config, plan_tensors,
+                                   synthetic_ts, transmit_step_iq)
+    cfg = named_config("32k_extended")
+    plan = build_plan(cfg, 1, strict=False)
+    fn = grids_symbol_sharded(plan, make_mesh([dev] * SYMBOL_SLOTS, mux=1))
+    padded = torch.from_numpy(np.concatenate(
+        [np.zeros(187, np.uint8),
+         synthetic_ts(plan.ts_bytes_in, seed=SEED + 900)])).to(dev)
+    reset_launches()
+    got = fn(padded, 0)
+    sync(torch, [dev])
+    counts = launches()
+    want = transmit_step_iq(plan_tensors(plan, dev, False), padded, 0)
+    require(torch.equal(got, want), "symbol-sharded 32k_extended differs "
+            "from transmit_step_iq")
+    require(counts == {"ldpc_parity": 1, "ifft_gi": 0},
+            f"symbol-sharded: launches {counts}")
+    print(f"symbol-sharded 32k_extended, 1 frame ({cfg.num_symbols} "
+          f"symbols, padded to {-(-cfg.num_symbols // SYMBOL_SLOTS)} a slab) "
+          f"over {SYMBOL_SLOTS} slots of {dev}: bit-identical to "
+          f"transmit_step_iq; launches {counts}")
+    return counts
+
+
+def dryrun_app_phase(torch, dev, tmp: str) -> None:
+    """Both dry runs on the card, and the multi-mux app as a subprocess
+    with two --config files."""
+    from dvbt2ll_tpu_torch import named_config
+    from dvbt2ll_tpu_torch.dryrun import dryrun_multichip, dryrun_multihost
+    t0 = time.perf_counter()
+    res = dryrun_multichip(8, dev)
+    print(f"dryrun_multichip(8, {dev}): {res}, "
+          f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    line = dryrun_multihost(dev)
+    print(f"dryrun_multihost on {dev}, {time.perf_counter() - t0:.2f} s: "
+          f"{line}")
+    paths = []
+    for name in ("vv009_4kshort", "8k_normal"):
+        p = os.path.join(tmp, f"{name}.json")
+        with open(p, "w") as f:
+            f.write(named_config(name).to_json())
+        paths += ["--config", p]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "dvbt2ll_tpu_torch.apps.multimux",
+         "--device", str(dev), "--slots", "4", "--mux", "1", "--steps", "2",
+         *paths], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=300)
+    require(res.returncode == 0, f"multimux app: rc {res.returncode}\n"
+            f"{res.stderr}")
+    require("2 heterogeneous groups" in res.stdout,
+            f"multimux app said: {res.stdout}")
+    said = " | ".join(res.stdout.strip().splitlines())
+    print(f"app multimux --device {dev} --slots 4, two --config groups, "
+          f"subprocess {time.perf_counter() - t0:.2f} s: {said}")
+
+
+def multi_device_phase(torch, dev, tmp: str) -> dict:
+    """Phase 9: the multi-device layer, (a)-(e)."""
+    counts, _, _ = sharded_phase(torch, [dev] * (SHARD_MUX * SHARD_FRAME),
+                                 "sharded one card")
+    paths = {"sharded_vv009_8mux": counts}
+    mm_counts = multimux_phase(torch, dev, tmp)
+    paths.update(mm_counts)
+    paths["symbol_sharded_32k"] = symbol_sharded_phase(torch, dev)
+    dryrun_app_phase(torch, dev, tmp)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        cards = [torch.device("cuda", i) for i in range(n_cards)]
+        slots = [cards[i % n_cards] for i in range(SHARD_MUX * SHARD_FRAME)]
+        counts, stx, ts = sharded_phase(torch, slots,
+                                        f"sharded over {n_cards} cards")
+        paths["sharded_vv009_8mux_cards"] = counts
+        no_peer_copies(torch, stx, ts)
+    else:
+        print(f"sharded over several cards: not run, "
+              f"torch.cuda.device_count() is {n_cards}")
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -619,6 +908,8 @@ def main() -> int:
         torch, dev, "multiplp_fef",
         3 * min_batch_frames(named_config("multiplp_fef")), strict=True,
         stream_rate=mplp_rate)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths.update(multi_device_phase(torch, dev, tmp))
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in paths.items()}

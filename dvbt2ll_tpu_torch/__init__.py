@@ -10,6 +10,9 @@ from ._host.io import synthetic_ts
 from .config import T2Config, named_config, vv009_config
 from .convert import plan_tensors
 from .executor import StreamingExecutor
+from .parallel import (DeviceMesh, MultiMuxTransmitter, MuxChannel,
+                       ShardedTransmitter, grids_symbol_sharded, halo_windows,
+                       make_mesh)
 from .pipeline import (Transmitter, bb_and_fec, transmit_step_iq,
                        transmit_step_iq_planar)
 from .plan import TransmitPlan, build_plan, min_batch_frames
@@ -18,5 +21,7 @@ __all__ = [
     "T2Config", "named_config", "vv009_config", "Transmitter",
     "TransmitPlan", "build_plan", "min_batch_frames", "plan_tensors",
     "bb_and_fec", "transmit_step_iq", "transmit_step_iq_planar",
-    "StreamingExecutor", "synthetic_ts",
+    "StreamingExecutor", "synthetic_ts", "DeviceMesh", "MultiMuxTransmitter",
+    "MuxChannel", "ShardedTransmitter", "grids_symbol_sharded",
+    "halo_windows", "make_mesh",
 ]

@@ -1,0 +1,365 @@
+"""Multi-device scale-out: the counterpart of
+``dvbt2ll_tpu/parallel/sharding.py``.
+
+The chain shards over a (mux, frame) grid of device slots:
+
+  * ``mux``   - independent DVB-T2 channels (pure data parallelism)
+  * ``frame`` - T2 frames of one channel; each shard gets a window of the
+                TS stream with a 187-byte halo in front (the packet-CRC sync
+                replacement looks back at most 187 bytes), so no shard
+                needs another shard's data
+
+Both axes are embarrassingly parallel through the whole chain.  The only
+sequential state (TS byte phase, CRC-8 carry, T2 frame counter) is
+resolved statically: the byte phase is static per plan, the CRC carry is
+the halo, the frame counter is arithmetic on the step and shard index.
+The JAX package proves "zero collectives" on its compiled program; here
+the invariant is that each block's window goes from the host to its
+slot's device, its step runs there, and its output stays there.  Host
+gathers (``__call__``, ``stream``) come after the step.
+
+A slot may repeat a device: sixteen slots of one card run sixteen blocks
+in turn on that card's current stream, which is how one card serves
+BASELINE config 5 (8+ independent channels).  Under a
+``torch.distributed`` process group the mesh spans every process, each
+process runs only the blocks of the slots it owns, and the step still
+calls no collective (the counterpart of ``_mesh_put`` under
+``jax.process_count() > 1``).
+
+``grids_symbol_sharded`` shards the symbol axis of one frame's OFDM
+back-end instead, for 32K single-frame latency work.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..config import T2Config
+from ..convert import plan_tensors
+from ..ops.ifft import set_full_fp32_matmul
+from ..pipeline import complex_grids, select_step_iq, symbols_with_gi
+from ..plan import TransmitPlan, build_plan
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DeviceMesh:
+    """A (mux, frame) grid of device slots.
+
+    ``devices`` is a (mux, frame) object array of ``torch.device``; one
+    device may fill many slots.  Under a ``torch.distributed`` process
+    group the grid is global, and a slot that another process owns holds
+    None."""
+
+    devices: np.ndarray
+    world: int = 1                  # processes the mesh spans
+
+    @property
+    def shape(self) -> dict:
+        m, f = self.devices.shape
+        return {"mux": m, "frame": f}
+
+    def local_devices(self) -> list:
+        """The distinct devices of this process's slots, in slot order."""
+        return list(dict.fromkeys(d for d in self.devices.flat
+                                  if d is not None))
+
+
+def _slot_device(d) -> torch.device:
+    d = torch.device(d)
+    if d.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {d} asked for, but "
+                               f"torch.cuda.is_available() is False")
+        if d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def cuda_devices() -> list:
+    """Every visible CUDA card.  Raises when there is none: a missing card
+    never becomes a CPU pool."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if not n:
+        raise RuntimeError("no CUDA device (torch.cuda.is_available() is "
+                           "False); pass the slots, e.g. ['cpu'] * 8")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def _process() -> tuple:
+    """(rank, world size) of the torch.distributed group, or (0, 1)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def make_mesh(devices: Optional[Sequence] = None, mux: int = 1,
+              frame: Optional[int] = None) -> DeviceMesh:
+    """A (mux, frame) mesh over this process's device slots (default:
+    every visible CUDA card, one slot each).  Slots may repeat a device:
+    ``["cuda:0"] * 16`` is a 16-slot pool on one card.
+
+    With an initialised ``torch.distributed`` process group the mesh
+    spans every process: mux * frame = world size * len(devices), and
+    rank r owns the r-th run of len(devices) slots in row-major order
+    (the order of ``jax.devices()``).  Every process passes the same
+    number of slots."""
+    local = [_slot_device(d)
+             for d in (cuda_devices() if devices is None else devices)]
+    rank, world = _process()
+    n = world * len(local)
+    if frame is None:
+        frame = n // mux if mux else 0
+    if not local or mux * frame != n:
+        raise ValueError(f"mux {mux} x frame {frame} != {world} "
+                         f"process(es) x {len(local)} slots")
+    flat = np.empty(n, dtype=object)
+    for i, d in enumerate(local):
+        flat[rank * len(local) + i] = d
+    return DeviceMesh(flat.reshape(mux, frame), world)
+
+
+def halo_windows(ts_streams: np.ndarray, carries: np.ndarray,
+                 n_shards: int) -> np.ndarray:
+    """Split (C, bytes) fresh TS streams into overlapping per-shard windows.
+
+    Returns (C, n_shards, 187 + bytes/n_shards) uint8.  carries is the
+    (C, 187) tail from the previous step.
+    """
+    c, total = ts_streams.shape
+    per = total // n_shards
+    assert per * n_shards == total
+    padded = np.concatenate([carries, ts_streams], axis=1)
+    out = np.empty((c, n_shards, 187 + per), dtype=np.uint8)
+    for s in range(n_shards):
+        out[:, s] = padded[:, s * per : s * per + 187 + per]
+    return out
+
+
+class ShardedTransmitter:
+    """N independent DVB-T2 muxes, frames sharded over a device mesh.
+
+    Each slot runs the single-chain step (``pipeline.select_step_iq``) on
+    its (mux-slice, frame-slice) block, on its own device; no block's
+    data moves to another device inside the step.
+    """
+
+    def __init__(self, cfg: T2Config, mesh: DeviceMesh, n_mux: int = 1,
+                 frames_per_shard: Optional[int] = None,
+                 strict: bool = True, allow_phase_drift: bool = False):
+        self.cfg = cfg
+        self.mesh = mesh
+        self.n_mux = n_mux
+        mux_shards = mesh.shape["mux"]
+        frame_shards = mesh.shape["frame"]
+        if n_mux % mux_shards:
+            raise ValueError("n_mux must divide over the mux axis")
+        # each shard runs an independent plan instance of this many frames
+        self.plan = build_plan(cfg, frames_per_shard, strict=strict)
+        self._allow_phase_drift = allow_phase_drift
+        self._phase_invariant = all(pp.bb.phase_invariant
+                                    for pp in self.plan.plps)
+        if (frame_shards > 1 and not allow_phase_drift
+                and not self._phase_invariant):
+            # shard s>0's halo window starts s*per bytes into the stream;
+            # unless per is a whole number of TS packets, that shard's
+            # static phase-0 plan mislabels sync/CRC slots on the VERY
+            # FIRST step - refuse rather than emit an invalid stream
+            raise ValueError(
+                "frame sharding needs a phase-invariant per-shard plan "
+                "(per-shard TS payload a multiple of 188); use "
+                "frames_per_shard=min_batch_frames(cfg), or pass "
+                "allow_phase_drift=True to treat every shard window as an "
+                "independent phase-0 stream (NOT a valid continuous "
+                "DVB-T2 stream)")
+        # the same tail as the single-chain Transmitter: sharded ==
+        # sequential holds bit for bit at equal per-call shapes
+        self._step_fn, planar = select_step_iq(cfg)
+        set_full_fp32_matmul()
+        # the plan's constants once per distinct device, not per slot
+        self.tensors = {d: plan_tensors(self.plan, d, planar)
+                        for d in mesh.local_devices()}
+        self.frame_shards = frame_shards
+        self.mux_per_shard = n_mux // mux_shards
+        self.frames_per_step = self.plan.batch_frames * frame_shards
+        n_plp = len(self.plan.plps)
+        self._carries = np.zeros((n_mux, n_plp, 187), dtype=np.uint8)
+        self._step_no = 0
+
+    def step_device(self, ts_bytes) -> list:
+        """ts_bytes: (n_mux, bytes_per_step_per_mux) fresh bytes per mux
+        for a single-PLP chain, or a sequence of such arrays (one per PLP,
+        sized n_mux x bytes_per_step_per_mux_per_plp[i]).
+
+        Every block's window is copied to its slot's device, then every
+        block's step is enqueued there, before any result is read; no
+        host sync falls between two blocks' steps.  Returns ``out[c][s]``, for mux c and frame shard s, the f32
+        (B_local, samples, 2) I/Q tensor on that block's device, or None
+        where another process owns the slot."""
+        cfg = self.cfg
+        if (self._step_no and not self._allow_phase_drift
+                and not self._phase_invariant):
+            raise RuntimeError(
+                "this plan is single-shot: its per-shard step payload is "
+                "not a multiple of the TS packet length, so a second step "
+                "would start at a drifted packet phase; build with "
+                "frames_per_shard=min_batch_frames(cfg) for streaming, or "
+                "pass allow_phase_drift=True for mechanism tests/benches")
+        streams = [np.asarray(s, dtype=np.uint8) for s in (
+            ts_bytes if isinstance(ts_bytes, (list, tuple)) else [ts_bytes])]
+        if len(streams) != len(self.plan.plps):
+            raise ValueError(f"{len(streams)} streams for "
+                             f"{len(self.plan.plps)} PLPs")
+        for s, want in zip(streams, self.bytes_per_step_per_mux_per_plp):
+            if s.shape != (self.n_mux, want):
+                raise ValueError(f"TS of shape {s.shape}, expected "
+                                 f"({self.n_mux}, {want})")
+        windows = []
+        for i, s in enumerate(streams):
+            windows.append(halo_windows(s, self._carries[:, i],
+                                        self.frame_shards))
+            self._carries[:, i] = s[:, -187:]
+        # T2 frame index of the first frame of each shard; keep the step
+        # counter bounded (only its value mod t2_frames matters)
+        self._step_no %= cfg.t2_frames
+        base = self._step_no * self.frames_per_step
+        fidx = (base + np.arange(self.frame_shards) * self.plan.batch_frames
+                ) % cfg.t2_frames
+        self._step_no += 1
+
+        # every window goes to its slot's device before any block runs:
+        # the pageable copy waits for the device, so a copy between two
+        # blocks' steps would hold the host until the first had finished
+        staged = {}
+        for (m, f), dev in np.ndenumerate(self.mesh.devices):
+            if dev is None:
+                continue  # another process's slot
+            for c in range(m * self.mux_per_shard,
+                           (m + 1) * self.mux_per_shard):
+                staged[c, f] = dev, [torch.tensor(w[c, f], device=dev)
+                                     for w in windows]
+        out = [[None] * self.frame_shards for _ in range(self.n_mux)]
+        for (c, f), (dev, ws) in staged.items():
+            out[c][f] = self._step_fn(self.tensors[dev],
+                                      ws if len(ws) > 1 else ws[0],
+                                      int(fidx[f]))
+        return out
+
+    def _require_whole_mesh(self) -> None:
+        if self.mesh.world > 1:
+            raise RuntimeError(
+                f"this process owns only part of a mesh over "
+                f"{self.mesh.world} processes; use step_device and gather "
+                f"the shards outside the step")
+
+    def gather(self, out: list) -> np.ndarray:
+        """``step_device``'s blocks -> complex64 (n_mux, frames_per_step,
+        samples_per_frame) on the host, after the step."""
+        self._require_whole_mesh()
+        iq = np.stack([torch.cat([o.cpu() for o in row]).numpy()
+                       for row in out])
+        return iq.reshape(self.n_mux, self.frames_per_step,
+                          -1).view(np.complex64)
+
+    def __call__(self, ts_bytes) -> np.ndarray:
+        """Returns complex64 (n_mux, frames_per_step, samples_per_frame)."""
+        self._require_whole_mesh()  # before the state advances
+        return self.gather(self.step_device(ts_bytes))
+
+    def stream(self, ts_bytes) -> np.ndarray:
+        """Like __call__ but returns the flat (n_mux, samples) emitted
+        stream with FEF parts inserted after every fef_interval-th T2 frame
+        (EN 302 755 section 8.4; no-op when the config has no FEF).  The
+        frame counter is bounded mod t2_frames, which preserves the FEF
+        cadence because fef_interval divides t2_frames (validated)."""
+        start = (self._step_no % self.cfg.t2_frames) * self.frames_per_step
+        frames = self(ts_bytes)
+        if not self.cfg.has_fef:
+            return frames.reshape(frames.shape[0], -1)
+        iv = self.cfg.fef_interval
+        out = []
+        for c in range(frames.shape[0]):
+            parts = []
+            for i in range(frames.shape[1]):
+                parts.append(frames[c, i])
+                if (start + i) % iv == iv - 1:
+                    parts.append(self.plan.fef_part)
+            out.append(np.concatenate(parts))
+        return np.stack(out)
+
+    @property
+    def bytes_per_step_per_mux(self) -> int:
+        return self.plan.ts_bytes_in * self.frame_shards
+
+    @property
+    def bytes_per_step_per_mux_per_plp(self) -> tuple:
+        return tuple(pp.ts_bytes_in * self.frame_shards
+                     for pp in self.plan.plps)
+
+    # ----------------------------------------------------- checkpoint/resume
+    def state_dict(self) -> dict:
+        """Cross-step state: the per-mux/per-PLP TS carry windows and the
+        step counter (the T2 frame index is derived from it).  The JAX
+        ``ShardedTransmitter``'s keys and shapes, so checkpoints move
+        between the packages."""
+        return {"carries": self._carries.copy(), "step_no": self._step_no}
+
+    def load_state(self, state: dict) -> None:
+        carries = np.asarray(state["carries"], dtype=np.uint8)
+        if carries.shape != self._carries.shape:
+            raise ValueError(f"carries of shape {carries.shape}, expected "
+                             f"{self._carries.shape}")
+        self._carries = carries.copy()
+        self._step_no = int(state["step_no"])
+
+    def save(self, path: str) -> None:
+        """File-checkpoint helpers mirroring Transmitter.save/restore
+        (the two FORMATS differ: sharded carries are (mux, plp, 187))."""
+        np.savez(path, **self.state_dict())
+
+    def restore(self, path: str) -> None:
+        with np.load(path) as z:
+            self.load_state({k: z[k] for k in z.files})
+
+
+def grids_symbol_sharded(plan: TransmitPlan, mesh: DeviceMesh,
+                         axis: str = "frame"):
+    """Sequence-parallel OFDM back-end: shard one step's (B, S, fft) grids
+    over the symbol axis for the IFFT and guard interval, for very large
+    FFT sizes where a single frame's IFFTs dominate latency.
+
+    Returns ``fn(ts_padded, frame_idx0)`` -> (B, samples, 2) f32 on the
+    first slot's device, the contract of ``pipeline.transmit_step_iq``.
+    FEC, the mapper and the frame builder run on the first slot's device;
+    the symbol axis is zero-padded to the shard count and each slot of
+    ``axis`` runs inverse sinc, IFFT, scale and guard interval on its
+    contiguous slab; the slabs come back to the first device, are cut to
+    S, and P1 and the I/Q planes follow.  That copy back is this
+    function's own gather, outside the collective-free step."""
+    slots = list(mesh.devices[0, :] if axis == "frame"
+                 else mesh.devices[:, 0])
+    if any(d is None for d in slots):
+        raise ValueError(f"symbol sharding needs every slot of the {axis} "
+                         f"axis in this process")
+    cfg = plan.cfg
+    dev0 = slots[0]
+    tp = plan_tensors(plan, dev0, planar=False)
+    eq = {d: None if tp.tail.eq is None else tp.tail.eq.to(d)
+          for d in dict.fromkeys(slots)}
+    n, s, fft = len(slots), cfg.num_symbols, cfg.fft_points
+
+    def fn(ts_padded, frame_idx0: int) -> torch.Tensor:
+        grids = complex_grids(tp, ts_padded, frame_idx0)
+        b = grids.shape[0]
+        g = torch.cat([grids, grids.new_zeros(b, (-s) % n, fft)], dim=1)
+        slabs = [symbols_with_gi(cfg, slab.to(d), eq[d])
+                 for slab, d in zip(g.chunk(n, dim=1), slots)]
+        body = torch.cat([t.to(dev0) for t in slabs], dim=1)[:, :s]
+        out = torch.cat([tp.tail.p1.expand(b, -1), body.reshape(b, -1)],
+                        dim=1)
+        return torch.view_as_real(out)
+
+    return fn

@@ -220,18 +220,29 @@ def build_frames(tp: PlanTensors, payload: torch.Tensor,
     return seq[:, t.grid] + t.pilot
 
 
-def ofdm_symbols(tp: PlanTensors, grids: torch.Tensor) -> torch.Tensor:
-    """(B, S, fft) grids -> (B, S * (fft + gi)) c64 OFDM symbols: the
-    optional inverse sinc, the IFFT scaled by fft * ofdm_normalization,
-    and the guard interval as a copy of each symbol's last gi samples."""
-    cfg = tp.plan.cfg
+def symbols_with_gi(cfg: T2Config, grids: torch.Tensor,
+                    eq: Optional[torch.Tensor]) -> torch.Tensor:
+    """(B, S, fft) grids -> (B, S, fft + gi) c64: the optional inverse
+    sinc ``eq``, the IFFT scaled by fft * ofdm_normalization, and the
+    guard interval as a copy of each symbol's last gi samples.  A slab of
+    the symbol axis (``parallel.grids_symbol_sharded``) runs the same
+    operations; whether its bits equal the whole's depends on the FFT
+    library's plan for the batch (on the CPU, MKL splits one 32K
+    transform over threads when the batch is smaller than the thread
+    count, and its sums then differ)."""
     fft = cfg.fft_points
     gi = cfg.guard_samples
-    if tp.tail.eq is not None:
-        grids = grids * tp.tail.eq
+    if eq is not None:
+        grids = grids * eq
     sym = torch.fft.ifft(grids, dim=-1) * (fft * cfg.ofdm_normalization)
-    with_gi = torch.cat([sym[..., fft - gi:], sym], dim=-1)
-    return with_gi.reshape(grids.shape[0], -1)
+    return torch.cat([sym[..., fft - gi:], sym], dim=-1)
+
+
+def ofdm_symbols(tp: PlanTensors, grids: torch.Tensor) -> torch.Tensor:
+    """(B, S, fft) grids -> (B, S * (fft + gi)) c64 OFDM symbols
+    (``symbols_with_gi`` with the plan's inverse sinc)."""
+    return symbols_with_gi(tp.plan.cfg, grids, tp.tail.eq).reshape(
+        grids.shape[0], -1)
 
 
 def modulate(tp: PlanTensors, grids: torch.Tensor) -> torch.Tensor:
@@ -241,17 +252,24 @@ def modulate(tp: PlanTensors, grids: torch.Tensor) -> torch.Tensor:
                      dim=1)
 
 
-def transmit_step(tp: PlanTensors, ts_padded,
+def complex_grids(tp: PlanTensors, ts_padded,
                   frame_idx0: int) -> torch.Tensor:
-    """Padded TS windows (one per PLP) -> (B, samples) c64: FEC and the
-    mapper per PLP, then the complex frame builder and tail."""
+    """Padded TS windows (one per PLP) -> (B, S, fft) c64 OFDM grids: FEC
+    and the mapper per PLP, then the complex frame builder."""
     plan = tp.plan
     payloads = [map_cells(pt, bb_and_fec(pt, w)).reshape(
         plan.batch_frames, pt.pp.cfg.stream_cells)
         for pt, w in zip(tp.plps, _as_windows(plan, ts_padded))]
     payload = (payloads[0] if len(payloads) == 1
                else torch.cat(payloads, dim=1))
-    return modulate(tp, build_frames(tp, payload, frame_idx0))
+    return build_frames(tp, payload, frame_idx0)
+
+
+def transmit_step(tp: PlanTensors, ts_padded,
+                  frame_idx0: int) -> torch.Tensor:
+    """Padded TS windows (one per PLP) -> (B, samples) c64: FEC and the
+    mapper per PLP, then the complex frame builder and tail."""
+    return modulate(tp, complex_grids(tp, ts_padded, frame_idx0))
 
 
 def transmit_step_iq(tp: PlanTensors, ts_padded,

@@ -15,9 +15,13 @@ I/Q interleave; for 32k_extended (the complex tail) ``bb_and_fec``,
 interval, and P1 with ``view_as_real``.  Then a ``torch.profiler`` table
 of device time by operator over 5 vv009 ``step_device`` steps, and
 ``StreamingExecutor`` at vv009 batch 256 under ``profile_trace``: its
-wall time against the device time of its kernels and of its copies.  The
-ratio of the device step to ``step_device`` is printed as an estimate of
-the device's busy share: two clocks, not a trace.
+wall time against the device time of its kernels and of its copies.  Then
+BASELINE config 5: 8 vv009 muxes through a ``ShardedTransmitter`` of 16
+slots of the card (and, with several cards, of all of them in turn) beside
+one ``Transmitter`` of the same 752 frames a step: wall time, and device
+time under ``torch.profiler``.  The ratio of the device step to
+``step_device`` is printed as an estimate of the device's busy share: two
+clocks, not a trace.
 """
 import os
 import subprocess
@@ -28,7 +32,8 @@ import time
 import numpy as np
 import torch
 
-from . import StreamingExecutor, Transmitter, named_config, synthetic_ts
+from . import (StreamingExecutor, Transmitter, min_batch_frames,
+               named_config, synthetic_ts)
 from .observability import profile_trace
 from .ops.ifft import ifft_gi, ifft_gi_einsum
 from .pipeline import (bb_and_fec, build_frames, frame_grids, map_cells,
@@ -165,6 +170,17 @@ def executor_trace(name: str, batch: int, steps: int = 10) -> None:
             wall = (time.perf_counter() - t0) * 1e3
         files = os.listdir(logdir)
         size = sum(os.path.getsize(os.path.join(logdir, f)) for f in files)
+    kern, copy = _device_ms(prof)
+    samples = steps * batch * tx.cfg.samples_per_frame
+    print(f"executor {name} batch {batch}, {steps} steps under "
+          f"profile_trace ({len(files)} trace file, {size} bytes): wall "
+          f"{wall:.3f} ms = {samples / wall / 1e3:.1f} Msamples/s; device "
+          f"kernels {kern:.3f} ms, memory copies {copy:.3f} ms; busy share "
+          f"of kernels {kern / wall:.3f}, of copies {copy / wall:.3f}")
+
+
+def _device_ms(prof) -> tuple:
+    """(kernel ms, memory-copy ms) of the device activity in a profile."""
     kern = copy = 0.0
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -174,12 +190,56 @@ def executor_trace(name: str, batch: int, steps: int = 10) -> None:
             copy += ms
         else:
             kern += ms
-    samples = steps * batch * tx.cfg.samples_per_frame
-    print(f"executor {name} batch {batch}, {steps} steps under "
-          f"profile_trace ({len(files)} trace file, {size} bytes): wall "
-          f"{wall:.3f} ms = {samples / wall / 1e3:.1f} Msamples/s; device "
-          f"kernels {kern:.3f} ms, memory copies {copy:.3f} ms; busy share "
-          f"of kernels {kern / wall:.3f}, of copies {copy / wall:.3f}")
+    return kern, copy
+
+
+def sharded_trace(cards: int = 1, steps: int = 10, n_mux: int = 8) -> None:
+    """BASELINE config 5: vv009 as ``n_mux`` strict muxes over a (n_mux,
+    2) ``ShardedTransmitter`` mesh whose slots take the first ``cards``
+    cards in turn, 47 frames a block, against one ``Transmitter`` of the
+    same frames a step on the first card.  Each runs ``steps`` fenced
+    ``step_device`` steps on the host clock, then again under
+    ``torch.profiler`` for its device kernel and copy time; that device
+    time over the unprofiled wall time and the card count is the busy
+    share estimate a card."""
+    from .parallel import ShardedTransmitter, make_mesh
+    cfg = named_config("vv009_4kshort")
+    b = min_batch_frames(cfg)
+    devs = [torch.device("cuda", i) for i in range(cards)]
+    slots = [devs[i % cards] for i in range(2 * n_mux)]
+    stx = ShardedTransmitter(cfg, make_mesh(slots, mux=n_mux), n_mux=n_mux,
+                             frames_per_shard=b)
+    frames = n_mux * stx.frames_per_step
+    one = Transmitter(cfg, frames, strict=True, device=devs[0])
+    n = stx.bytes_per_step_per_mux
+    ts = synthetic_ts(n_mux * n, seed=3).reshape(n_mux, n)
+    runs = ((f"sharded over {cards} card(s)", cards,
+             lambda: stx.step_device(ts)),
+            ("one Transmitter", 1, lambda: one.step_device(ts.reshape(-1))))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def fenced(step):
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        for d in devs:
+            torch.cuda.synchronize(d)
+        return (time.perf_counter() - t0) * 1e3
+
+    samples = steps * frames * cfg.samples_per_frame
+    for label, n_cards, step in runs:
+        fenced(step)  # warm-up: each card's first steps load libraries
+        wall = fenced(step)
+        with torch.profiler.profile(activities=acts) as prof:
+            prof_wall = fenced(step)
+        kern, copy = _device_ms(prof)
+        print(f"vv009 x {n_mux} muxes, {label} ({frames} frames a step), "
+              f"{steps} steps: wall {wall:.3f} ms = "
+              f"{samples / wall / 1e3:.1f} Msamples/s; under torch.profiler "
+              f"wall {prof_wall:.3f} ms, device kernels {kern:.3f} ms, "
+              f"memory copies {copy:.3f} ms; busy share estimate a card "
+              f"{(kern + copy) / wall / n_cards:.3f}")
 
 
 def operators(name: str, batch: int) -> None:
@@ -213,6 +273,9 @@ def main() -> int:
     stages_complex("32k_extended", BATCH)
     operators("vv009_4kshort", BATCH)
     executor_trace("vv009_4kshort", BATCH)
+    sharded_trace()
+    if torch.cuda.device_count() > 1:
+        sharded_trace(torch.cuda.device_count())
     return 0
 
 

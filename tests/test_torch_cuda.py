@@ -10,8 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from dvbt2ll_tpu_torch import (StreamingExecutor, Transmitter,
-                               min_batch_frames, named_config, synthetic_ts,
+from dvbt2ll_tpu_torch import (MultiMuxTransmitter, MuxChannel,
+                               ShardedTransmitter, StreamingExecutor,
+                               Transmitter, build_plan, grids_symbol_sharded,
+                               make_mesh, min_batch_frames, named_config,
+                               plan_tensors, synthetic_ts, transmit_step_iq,
                                vv009_config)
 from dvbt2ll_tpu_torch._host.config import (CodeRate, FrameSize, InputMode,
                                             T2Config)
@@ -205,3 +208,95 @@ def test_executor_output_survives_allocator_reuse(cuda):
     torch.cuda.empty_cache()
     _executor_vs_stream(cuda, 1, 40, seed=7, strict=False,
                         allow_phase_drift=True)
+
+
+def _launches():
+    return qc_ldpc_parity.launches, ifft.ifft_gi.launches
+
+
+def _drift_sharded(cfg, slots, n_mux):
+    return ShardedTransmitter(cfg, make_mesh(slots, mux=2), n_mux=n_mux,
+                              frames_per_shard=1, strict=False,
+                              allow_phase_drift=True)
+
+
+def _sharded_vs_sequential(slots):
+    """A (2, len(slots) / 2) vv009 mesh, one frame a block: every block on
+    its slot's card, bit-identical to the sequential Transmitter at the
+    same per-call batch, both kernels launched once a block."""
+    cfg = vv009_config()
+    stx = _drift_sharded(cfg, slots, 2)
+    ts = np.stack([synthetic_ts(stx.bytes_per_step_per_mux, seed=11 + c)
+                   for c in range(2)])
+    before = _launches()
+    out = stx.step_device(ts)
+    blocks = len(slots)
+    assert _launches() == (before[0] + blocks, before[1] + blocks)
+    for c in range(2):
+        tx = Transmitter(cfg, 1, strict=False, allow_phase_drift=True,
+                         device=stx.mesh.devices[c, 0])
+        n = tx.bytes_per_step
+        for s in range(stx.frame_shards):
+            o = out[c][s]
+            assert o.device == stx.mesh.devices[c, s]
+            ref = tx.step_device(ts[c, s * n:(s + 1) * n])
+            assert torch.equal(o, ref.to(o.device)), (c, s)
+
+
+def test_sharded_equals_sequential_on_four_slots(cuda):
+    _sharded_vs_sequential([cuda] * 4)
+
+
+def test_sharded_launches_each_kernel_once_a_block(cuda):
+    """4 muxes over a (2, 2) mesh: 2 muxes a block row, 8 blocks a step,
+    every step."""
+    stx = _drift_sharded(vv009_config(), [cuda] * 4, 4)
+    for step in range(2):
+        ts = np.stack([synthetic_ts(stx.bytes_per_step_per_mux,
+                                    seed=20 + 4 * step + c)
+                       for c in range(4)])
+        before = _launches()
+        stx.step_device(ts)
+        assert _launches() == (before[0] + 8, before[1] + 8), step
+
+
+def test_sharded_over_two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    cards = [torch.device("cuda", i) for i in range(2)]
+    _sharded_vs_sequential(cards * 2)
+
+
+def test_hetero_multimux_on_card(cuda):
+    """A vv009 group (planar tail) beside a 32k_extended group (complex
+    tail: LDPC launches, no tail kernel), each channel bit-identical to its
+    standalone ShardedTransmitter on the card."""
+    cfg_a, cfg_b = vv009_config(), named_config("32k_extended")
+    drift = dict(frames_per_shard=1, strict=False, allow_phase_drift=True)
+    mm = MultiMuxTransmitter([MuxChannel(cfg_a, n_mux=2, n_devices=4,
+                                         **drift),
+                              MuxChannel(cfg_b, n_devices=2, **drift)],
+                             devices=[cuda] * 6)
+    na, nb = mm.bytes_per_step
+    ts = [np.stack([synthetic_ts(na, seed=30 + c) for c in range(2)]),
+          synthetic_ts(nb, seed=32)[None]]
+    before = _launches()
+    out = mm.step_device(ts)
+    assert _launches() == (before[0] + 6, before[1] + 4)
+    refs = [_drift_sharded(cfg_a, [cuda] * 4, 2),
+            ShardedTransmitter(cfg_b, make_mesh([cuda] * 2), **drift)]
+    for got, ref, t in zip(out, refs, ts):
+        for g_row, r_row in zip(got, ref.step_device(t)):
+            assert all(torch.equal(g, r) for g, r in zip(g_row, r_row))
+
+
+def test_symbol_sharded_on_card(cuda):
+    """32k_extended, 1 frame over 4 slots, bit-identical to the whole
+    complex step (cuFFT's transform of a slab is the whole's)."""
+    plan = build_plan(named_config("32k_extended"), 1, strict=False)
+    fn = grids_symbol_sharded(plan, make_mesh([cuda] * 4))
+    padded = torch.from_numpy(np.concatenate(
+        [np.zeros(187, np.uint8),
+         synthetic_ts(plan.ts_bytes_in, seed=40)])).to(cuda)
+    assert torch.equal(fn(padded, 0), transmit_step_iq(
+        plan_tensors(plan, cuda, False), padded, 0))

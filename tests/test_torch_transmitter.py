@@ -199,6 +199,11 @@ def test_port_never_imports_jax():
         "import dvbt2ll_tpu_torch.ops._build, dvbt2ll_tpu_torch.ops.ifft\n"
         "import dvbt2ll_tpu_torch.executor\n"
         "import dvbt2ll_tpu_torch.apps.vv009_4kshort\n"
+        "import dvbt2ll_tpu_torch.apps.multimux\n"
+        "import dvbt2ll_tpu_torch.parallel, dvbt2ll_tpu_torch.dryrun\n"
+        "stx = p.ShardedTransmitter(p.vv009_config(), p.make_mesh(['cpu'] "
+        "* 2), frames_per_shard=1, strict=False, allow_phase_drift=True)\n"
+        "stx(p.synthetic_ts(stx.bytes_per_step_per_mux)[None])\n"
         "from dvbt2ll_tpu_torch.observability import profile_trace\n"
         "tx = p.Transmitter(p.vv009_config(), 1, strict=False, "
         "device='cpu')\n"
