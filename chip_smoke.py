@@ -9,12 +9,16 @@ imports no JAX.  Phases, each of which raises on failure:
 1. setup: the card's name and power limit (nvidia-smi), then the build of
    the CUDA kernels from ``dvbt2ll_tpu_torch/csrc`` (one nvcc a source,
    in parallel) with what ptxas reports;
-2. the LDPC parity kernel against its plain torch twin, on the card,
-   bit for bit, on the vv009 table (2048 frames, one batch-256 step) and
-   the 8k_normal table (512 frames), with both timings;
-3. the OFDM tail kernel (4-step IFFT + guard interval) against its plain
-   twin on the same grids, above 120 dB SNR: vv009 and 8k_normal at batch
-   256, timed, and every other planar (fft, gi) shape;
+2. the LDPC codeword kernel against its plain torch twin, on the card,
+   bit for bit, and the parity against the numpy oracle, on the vv009
+   table (2048 frames, one batch-256 step) and the 8k_normal table (512
+   frames), timed beside its plain twin and its bound;
+3. the fused OFDM tail kernel (P1, then each symbol's 4-step IFFT and
+   guard interval as final I/Q) against its plain twin on the same grids
+   and P1: P1 bit for bit, the rest above 120 dB SNR, at vv009 and
+   8k_normal at batch 256, timed beside its plain twin, its bound and
+   ``torch.fft.ifft`` on the same transforms, and every other planar
+   (fft, gi) shape;
 4. all seventeen reference-binary goldens (``tests/golden_ref``) through
    ``Transmitter`` on the card, the twelve planar ones and the five of the
    complex ``torch.fft`` tail (16K, 32K, GI 1216): FEC bits exact, IQ
@@ -104,6 +108,8 @@ SHARD_MUX = 8          # BASELINE.json config 5: 8+ independent channels
 SHARD_FRAME = 2
 SHARD_STEPS = 2
 SYMBOL_SLOTS = 4
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
+FP32_FLOP_PER_S = 67e12     # float32 outside the tensor cores, the same
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -120,12 +126,26 @@ def snr_db(ref, x) -> float:
         10 * np.log10(np.sum(np.abs(ref) ** 2) / err))
 
 
+def bound(nbytes: float, flops: float) -> tuple:
+    """(ms, what sets it): the larger of the bytes over the memory rate
+    and the float32 operations over the float32 rate, both the published
+    H100 SXM peaks."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / FP32_FLOP_PER_S * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
 def ldpc_phase(torch, dev, rng) -> dict:
+    """The LDPC codeword kernel against its plain twin, bit for bit, and
+    the numpy scatter oracle; timed beside its bound.  No single PyTorch
+    call computes QC-LDPC parity, so there is no library time."""
     from dvbt2ll_tpu_torch import named_config
-    from dvbt2ll_tpu_torch._host.tables.ldpc import encode_ref, qc_entries
-    from dvbt2ll_tpu_torch.ops.ldpc import (ldpc_schedule, qc_ldpc_parity,
-                                            qc_ldpc_parity_plain)
+    from dvbt2ll_tpu_torch.ops.ldpc import (ldpc_codeword,
+                                            ldpc_codeword_plain,
+                                            ldpc_schedule)
     from dvbt2ll_tpu_torch.profile_step import cuda_ms
+    from dvbt2ll_tpu_torch.tables.ldpc import encode_ref, qc_entries
     times = {}
     for name, frames in LDPC_CASES:
         cfg = named_config(name)
@@ -134,54 +154,84 @@ def ldpc_phase(torch, dev, rng) -> dict:
             cfg.ldpc_parity_bits, cfg.q_ldpc, dev)
         host = rng.integers(0, 2, (frames, cfg.nbch), dtype=np.uint8)
         bits = torch.from_numpy(host).to(dev)
-        got = qc_ldpc_parity(sched, bits)
-        want = qc_ldpc_parity_plain(sched, bits)
+        got = ldpc_codeword(sched, bits)
+        want = ldpc_codeword_plain(sched, bits)
         torch.cuda.synchronize()
         err = int((got.int() - want.int()).abs().max())
         require(err == 0, f"{name}: LDPC kernel differs from its twin")
         got_h = got.cpu().numpy()
+        require(np.array_equal(got_h[:, :cfg.nbch], host),
+                f"{name}: info bits not passed through")
         for i in (0, frames - 1):  # and the numpy scatter oracle
             ref = encode_ref(host[i], cfg.frame_size, cfg.code_rate,
                              cfg.ldpc_parity_bits, cfg.q_ldpc)
-            require((got_h[i] == ref).all(), f"{name}: frame {i} != oracle")
-        ms = cuda_ms(lambda: qc_ldpc_parity(sched, bits))
-        plain_ms = cuda_ms(lambda: qc_ldpc_parity_plain(sched, bits))
-        print(f"ldpc {name} F={frames}: bit-exact, kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms ({plain_ms / ms:.2f}x)")
-        times[name] = (err, ms, plain_ms)
+            require((got_h[i, cfg.nbch:] == ref).all(),
+                    f"{name}: frame {i} != oracle")
+        ms = cuda_ms(lambda: ldpc_codeword(sched, bits))
+        plain_ms = cuda_ms(lambda: ldpc_codeword_plain(sched, bits))
+        # each bit a byte: nbch read, the codeword written; 360 rows x E
+        # XORs plus the row scans are integer work far under the bytes
+        bound_ms, by = bound(frames * (cfg.nbch + cfg.ldpc_frame_bits), 0.0)
+        print(f"ldpc_codeword {name} F={frames}: bit-exact, kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"({plain_ms / ms:.2f}x); bound {bound_ms:.4f} ms "
+              f"({by}), share of bound {bound_ms / ms:.3f}")
+        times[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=by, library_ms=None)
     return times
 
 
 def tail_phase(torch, dev, rng) -> dict:
-    """The OFDM tail kernel against its plain twin on the same grids."""
-    from dvbt2ll_tpu_torch.ops.ifft import (factor_tensors, ifft_gi,
-                                            ifft_gi_einsum)
+    """The fused OFDM tail kernel against its plain twin on the same grids
+    and P1: P1 bit for bit, the rest above TAIL_DB; the timed shapes
+    beside their bound and ``torch.fft.ifft`` (cuFFT) on (B S, fft)
+    complex64, the one PyTorch call that computes the transform."""
+    from dvbt2ll_tpu_torch.ops.ifft import (P1_LEN, ifft_gi,
+                                            ofdm_tail_plain, tail_tables)
     from dvbt2ll_tpu_torch.profile_step import cuda_ms
     times = {}
     for (b, s), fft, gi, timed in TAIL_CASES:
         shape = (b, s, fft // 128, 128)
         re, im = (torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(dev) for _ in range(2))
+        p1 = torch.from_numpy(rng.standard_normal((P1_LEN, 2)).astype(
+            np.float32)).to(dev)
         scale = 1.0 / np.sqrt(fft)
-        mats = factor_tensors(fft, scale, dev)
-        got = ifft_gi(re, im, fft, gi, scale, mats)
-        want = ifft_gi_einsum(re, im, fft, gi, scale, mats)
+        tables = tail_tables(fft, scale, dev)
+        got = ifft_gi(re, im, p1, fft, gi, scale, tables)
+        want = ofdm_tail_plain(re, im, p1, fft, gi, scale, tables)
         torch.cuda.synchronize()
-        snr = snr_db(torch.complex(*want).cpu().numpy(),
-                     torch.complex(*got).cpu().numpy())
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        require(all(tuple(g.shape) == (b, s, fft + gi) for g in got),
-                f"tail {fft}/{gi}: output shape")
+        require(tuple(got.shape) == tuple(want.shape)
+                == (b, P1_LEN + s * (fft + gi), 2)
+                and got.stride() == want.stride()
+                and got.dtype == torch.float32,
+                f"tail {fft}/{gi}: output shape, strides or dtype")
+        require(torch.equal(got[:, :P1_LEN], want[:, :P1_LEN]),
+                f"tail {fft}/{gi}: P1 not in place")
+        snr = snr_db(torch.view_as_complex(want).cpu().numpy(),
+                     torch.view_as_complex(got).cpu().numpy())
+        err = float((got - want).abs().max())
         require(snr > TAIL_DB, f"tail {fft}/{gi}: kernel vs twin {snr:.2f} dB")
         line = (f"ifft_gi fft {fft} gi {gi} grids {shape}: kernel vs twin "
                 f"{snr:.2f} dB, max abs err {err:.3e}")
         if timed:
-            ms = cuda_ms(lambda: ifft_gi(re, im, fft, gi, scale, mats))
-            plain_ms = cuda_ms(lambda: ifft_gi_einsum(re, im, fft, gi,
-                                                      scale, mats))
-            times[timed] = (err, ms, plain_ms)
+            ms = cuda_ms(lambda: ifft_gi(re, im, p1, fft, gi, scale, tables))
+            plain_ms = cuda_ms(lambda: ofdm_tail_plain(re, im, p1, fft, gi,
+                                                       scale, tables))
+            natural = torch.complex(re, im).reshape(b * s, fft)
+            library_ms = cuda_ms(lambda: torch.fft.ifft(natural, dim=-1))
+            # the grids, P1 and both tables read once, the I/Q written
+            # once; 5 N log2 N float32 operations a symbol
+            nbytes = sum(t.numel() * 4 for t in (re, im, p1, tables.w128,
+                                                 tables.twiddle, got))
+            bound_ms, by = bound(nbytes, 5.0 * b * s * fft * np.log2(fft))
+            times[timed] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=by,
+                                library_ms=library_ms)
             line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                     f"({plain_ms / ms:.2f}x)")
+                     f"({plain_ms / ms:.2f}x), torch.fft.ifft on ({b * s}, "
+                     f"{fft}) {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
+                     f"({by}), share of bound {bound_ms / ms:.3f}")
         print(line)
     return times
 
@@ -212,15 +262,15 @@ def golden_phase(torch, dev) -> None:
 
 def reset_launches() -> None:
     from dvbt2ll_tpu_torch.ops.ifft import ifft_gi
-    from dvbt2ll_tpu_torch.ops.ldpc import qc_ldpc_parity
-    qc_ldpc_parity.launches = 0
+    from dvbt2ll_tpu_torch.ops.ldpc import ldpc_codeword
+    ldpc_codeword.launches = 0
     ifft_gi.launches = 0
 
 
 def launches() -> dict:
     from dvbt2ll_tpu_torch.ops.ifft import ifft_gi
-    from dvbt2ll_tpu_torch.ops.ldpc import qc_ldpc_parity
-    return {"ldpc_parity": qc_ldpc_parity.launches,
+    from dvbt2ll_tpu_torch.ops.ldpc import ldpc_codeword
+    return {"ldpc_parity": ldpc_codeword.launches,
             "ifft_gi": ifft_gi.launches}
 
 
@@ -355,7 +405,7 @@ def pipe_ingest(data: np.ndarray):
     """``data`` written into a real OS pipe by a thread and read back by
     the native TS ingest ring's pump thread.  Yields (source, ingest):
     ``source(n)`` gives the next n fresh TS bytes, waiting for the ring."""
-    from dvbt2ll_tpu_torch._host.io.ingest import TSIngest
+    from dvbt2ll_tpu_torch.io.ingest import TSIngest
     rfd, wfd = os.pipe()
 
     def feed():
@@ -445,7 +495,7 @@ def paced_phase(torch, dev, tmp: str) -> dict:
     from dvbt2ll_tpu_torch import (StreamingExecutor, Transmitter,
                                    min_batch_frames, synthetic_ts,
                                    vv009_config)
-    from dvbt2ll_tpu_torch._host.io.native_sink import NativeIQSink
+    from dvbt2ll_tpu_torch.io.native_sink import NativeIQSink
     cfg = vv009_config()
     b = min_batch_frames(cfg)
     tx = Transmitter(cfg, b, validate_ts=True, device=dev)
@@ -915,27 +965,36 @@ def main() -> int:
         return {p: c[kernel] for p, c in paths.items()}
 
     main_path = paths["vv009_4kshort"]
-    err, ms, plain_ms = ldpc_times["vv009_4kshort"]
-    t_err, t_ms, t_plain = tail_times["vv009_4kshort"]
-    _, t8_ms, t8_plain = tail_times["8k_normal"]
+
+    def row(name, source, replaces, times, **extra):
+        """One kernel's entry: the vv009 numbers under the contract's
+        keys, the 8k_normal ones with that suffix."""
+        main, k8 = times["vv009_4kshort"], times["8k_normal"]
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, **extra,
+                 "launches": main_path[name],
+                 "launches_per_step": main_path[name] // (1 + STREAM_STEPS),
+                 "launches_by_path": by_path(name),
+                 "max_abs_err": main["err"]}
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
+            entry[key] = main[key]
+        for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms"):
+            entry[f"{key}_8k_normal"] = k8["err" if key == "max_abs_err"
+                                           else key]
+        entry["launches_per_step_8k_normal"] = (paths["8k_normal"][name]
+                                                // (1 + STEPS_8K))
+        return entry
+
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - start:.1f} s")
     print(card_line())
-    print(json.dumps({"kernels": [{
-        "name": "ldpc_parity", "route": "cuda",
-        "source": "dvbt2ll_tpu_torch/csrc/ldpc_parity.cu",
-        "replaces": "dvbt2ll_tpu/ops/ldpc_pallas.py:61",
-        "also_replaces": "dvbt2ll_tpu/ops/ldpc_pallas.py:137",
-        "launches": main_path["ldpc_parity"],
-        "launches_by_path": by_path("ldpc_parity"), "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms}, {
-        "name": "ifft_gi", "route": "cuda",
-        "source": "dvbt2ll_tpu_torch/csrc/ifft_gi.cu",
-        "replaces": "dvbt2ll_tpu/ops/ifft_pallas.py:226",
-        "launches": main_path["ifft_gi"],
-        "launches_by_path": by_path("ifft_gi"), "max_abs_err": t_err,
-        "ms": t_ms, "plain_ms": t_plain,
-        "ms_8k_normal": t8_ms, "plain_ms_8k_normal": t8_plain}]}))
+    print(json.dumps({"kernels": [
+        row("ldpc_parity", "dvbt2ll_tpu_torch/csrc/ldpc_parity.cu",
+            "dvbt2ll_tpu/ops/ldpc_pallas.py:61", ldpc_times,
+            also_replaces="dvbt2ll_tpu/ops/ldpc_pallas.py:137"),
+        row("ifft_gi", "dvbt2ll_tpu_torch/csrc/ifft_gi.cu",
+            "dvbt2ll_tpu/ops/ifft_pallas.py:226", tail_times)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

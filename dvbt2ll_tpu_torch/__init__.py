@@ -2,11 +2,11 @@
 hand-written CUDA kernels for NVIDIA Hopper.
 
 A port of ``dvbt2ll_tpu`` (JAX on a TPU), which stays the reference.  The
-host-side planner is shared, not copied: ``_host`` loads the JAX
-package's numpy modules without importing jax.  This package imports
-``torch`` and never ``jax``.
+port stands alone: it keeps its own copies of the host-side planner
+(``config``, ``plan``, ``tables``, ``io``, ``observability``), imports
+``torch`` and never ``jax``, and nothing of ``dvbt2ll_tpu``.
 """
-from ._host.io import synthetic_ts
+from .io import synthetic_ts
 from .config import T2Config, named_config, vv009_config
 from .convert import plan_tensors
 from .executor import StreamingExecutor

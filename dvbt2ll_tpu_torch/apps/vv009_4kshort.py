@@ -48,8 +48,8 @@ def main():
     import torch
 
     from .. import Transmitter, min_batch_frames, synthetic_ts, vv009_config
-    from .._host.io import TSFileSource
-    from .._host.io.sink import IQFileSink
+    from ..io import TSFileSource
+    from ..io.sink import IQFileSink
     from ..config import T2Config
 
     if torch.device(args.device).type == "cuda" and not (
@@ -80,7 +80,7 @@ def main():
     n = tx.bytes_per_step
 
     if args.native_sink:
-        from .._host.io.native_sink import NativeIQSink
+        from ..io.native_sink import NativeIQSink
         sink_cls = lambda p, gain: NativeIQSink(p, gain=gain)  # noqa: E731
     else:
         sink_cls = IQFileSink
@@ -108,7 +108,7 @@ def main():
 
     with sink_cls(args.output, gain=args.gain) as sink:
         if args.stdin:
-            from .._host.io.ingest import TSIngest
+            from ..io.ingest import TSIngest
             with TSIngest(fd=sys.stdin.fileno()) as ing:
                 while True:
                     if ing.pump(1 << 20) < 0 and ing.available < 188:

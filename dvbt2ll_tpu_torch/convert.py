@@ -16,7 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .ops.ifft import N1, factor_tensors
+from .ops.ifft import N1, TailTables, tail_tables
 from .ops.ldpc import LdpcSchedule, ldpc_schedule
 
 
@@ -44,12 +44,11 @@ class PlanarTail:
     l1post_im: torch.Tensor
     dummy_re: torch.Tensor          # (dummy cells,) f32
     dummy_im: torch.Tensor
-    p1_re: torch.Tensor             # (2048,) f32
-    p1_im: torch.Tensor
+    p1_iq: torch.Tensor             # (2048, 2) f32, interleaved
     grid_t: torch.Tensor            # (S, N2, N1) i64 gather into seq
     pilot_t: torch.Tensor           # (S, N2, N1) f32
     eq_t: Optional[torch.Tensor]    # (1, N2, N1) f32 inverse sinc, or None
-    ifft: tuple                     # factor_tensors(fft, scale)
+    ifft: TailTables                # tail_tables(fft, scale)
 
 
 @dataclasses.dataclass
@@ -131,14 +130,14 @@ def _planar_tail(plan, device) -> PlanarTail:
         l1post_im=_t(l1post.imag, np.float32, device),
         dummy_re=_t(dummy.real, np.float32, device),
         dummy_im=_t(dummy.imag, np.float32, device),
-        p1_re=_t(p1.real, np.float32, device),
-        p1_im=_t(p1.imag, np.float32, device),
+        p1_iq=_t(np.stack([p1.real, p1.imag], axis=-1), np.float32,
+                 device),
         grid_t=_t(_seq_gather(plan)[:, tidx], np.int64, device),
         pilot_t=_t(np.asarray(plan.pilot_plane)[:, tidx], np.float32,
                    device),
         eq_t=eq_t,
         # 1/N of the inverse transform times the chain's N * ofdm_norm
-        ifft=factor_tensors(fft, cfg.ofdm_normalization, device),
+        ifft=tail_tables(fft, cfg.ofdm_normalization, device),
     )
 
 

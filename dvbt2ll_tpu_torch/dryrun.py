@@ -31,7 +31,7 @@ import time
 import numpy as np
 import torch
 
-from ._host.io import synthetic_ts
+from .io import synthetic_ts
 from .config import (CodeRate, Constellation, FFTSize, FrameSize,
                      GuardInterval, InputMode, PilotPattern, Rotation,
                      T2Config, vv009_config)

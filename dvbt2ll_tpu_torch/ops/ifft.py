@@ -1,10 +1,12 @@
-"""The planar OFDM tail: 4-step IFFT plus guard interval on re/im float32
-planes.  ``ifft_gi`` runs the CUDA kernel ``csrc/ifft_gi.cu`` on a CUDA
-tensor; ``ifft_gi_einsum`` is its plain twin, torch matmuls in the einsum
-form the JAX package ships as its default
-(``dvbt2ll_tpu/ops/ifft_pallas.py:70-98``).  The kernel replaces the Pallas
-TPU kernel ``ifft_gi_pallas`` (``ifft_pallas.py:181``); see its source for
-what bounds it on the card and what its design does about it.
+"""The planar OFDM tail: P1, then the 4-step IFFT plus guard interval of
+each symbol, from re/im float32 planes to the final (B, samples, 2) I/Q.
+``ifft_gi`` runs the CUDA kernel ``csrc/ifft_gi.cu`` on a CUDA tensor;
+``ofdm_tail_plain`` is its plain twin: ``ifft_gi_einsum`` (torch matmuls in
+the einsum form the JAX package ships as its default,
+``dvbt2ll_tpu/ops/ifft_pallas.py:70-98``), the P1 concat and the I/Q
+stack.  The kernel replaces the Pallas TPU kernel ``ifft_gi_pallas``
+(``ifft_pallas.py:181``) and that epilogue; see its source for what bounds
+it on the card and what its design does about it.
 
 With N = N1 * N2 (N1 = 128), input element [b, s, k2, k1] holds carrier
 bin N2 * k1 + k2 (the frame builder's gather emits this layout), so both
@@ -12,16 +14,19 @@ products keep n1 on the last axis, the result rows come out in natural
 sample order, and the guard interval is a copy of the last gi / 128 rows.
 
 Precision matters: the chain must stay above 100 dB SNR against the
-reference, and TF32 products would not.  The kernel computes in full
-float32 FMA; ``ifft_gi_einsum`` refuses to run on CUDA unless float32
-matmuls are full float32.
+reference, and TF32 products would not.  The kernel computes radix FFT
+passes in full float32 with twiddles made in float64; ``ifft_gi_einsum``
+refuses to run on CUDA unless float32 matmuls are full float32.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 N1 = 128  # length of the second DFT factor, the last axis of the planes
+P1_LEN = 2048  # samples of the P1 symbol at the head of every frame
 
 
 def supported(fft: int, gi: int) -> bool:
@@ -94,11 +99,53 @@ def ifft_gi_einsum(grids_re_t: torch.Tensor, grids_im_t: torch.Tensor,
             body_im.reshape(b, s, fft + gi))
 
 
-def ifft_gi(grids_re_t: torch.Tensor, grids_im_t: torch.Tensor, fft: int,
-            gi: int, scale: float, mats=None):
-    """``ifft_gi_einsum``'s contract: transposed-layout grids (B, S, N2, N1)
-    float32 planes -> (B, S, fft + gi) float32 planes (re, im), with
-    ``mats = factor_tensors(fft, scale, device)`` (built when None).
+@dataclasses.dataclass(frozen=True, eq=False)
+class TailTables:
+    """One geometry's constants, made once and kept on the device: the
+    twin's factor matrices (``factor_tensors``) and the kernel's twiddle
+    tables, float64 cast to float32 and interleaved (re, im): ``w128``
+    (128, 2) = exp(2 pi i k / 128), ``twiddle`` (fft, 2) = scale *
+    exp(2 pi i k / fft)."""
+
+    fft: int
+    mats: tuple
+    w128: torch.Tensor
+    twiddle: torch.Tensor
+
+
+def tail_tables(fft: int, scale: float, device) -> TailTables:
+    def iq(z):
+        return torch.from_numpy(np.ascontiguousarray(np.stack(
+            [z.real, z.imag], axis=-1), dtype=np.float32)).to(device)
+
+    return TailTables(
+        fft, factor_tensors(fft, scale, device),
+        iq(np.exp(2j * np.pi * np.arange(N1) / N1)),
+        iq(scale * np.exp(2j * np.pi * np.arange(fft) / fft)))
+
+
+def ofdm_tail_plain(grids_re_t: torch.Tensor, grids_im_t: torch.Tensor,
+                    p1_iq: torch.Tensor, fft: int, gi: int, scale: float,
+                    tables: TailTables | None = None) -> torch.Tensor:
+    """Transposed-layout grids (B, S, N2, N1) float32 planes and P1
+    (2048, 2) -> (B, 2048 + S (fft + gi), 2) float32 I/Q: P1, then each
+    symbol with its guard interval (``ifft_gi_einsum``)."""
+    b = grids_re_t.shape[0]
+    mats = None if tables is None else tables.mats
+    body_re, body_im = ifft_gi_einsum(grids_re_t, grids_im_t, fft, gi, scale,
+                                      mats)
+    body = torch.stack([body_re.reshape(b, -1), body_im.reshape(b, -1)],
+                       dim=-1)
+    return torch.cat([p1_iq.expand(b, -1, -1), body], dim=1)
+
+
+def ifft_gi(grids_re_t: torch.Tensor, grids_im_t: torch.Tensor,
+            p1_iq: torch.Tensor, fft: int, gi: int, scale: float,
+            tables: TailTables | None = None) -> torch.Tensor:
+    """``ofdm_tail_plain``'s contract: transposed-layout grids (B, S, N2,
+    N1) float32 planes and P1 (2048, 2) float32 -> the frames' final
+    (B, 2048 + S (fft + gi), 2) float32 I/Q, with ``tables =
+    tail_tables(fft, scale, device)`` (built when None).
 
     A CPU tensor goes through the plain twin.  A CUDA tensor launches
     the kernel, or raises: there is no fallback.  ``ifft_gi.launches``
@@ -110,47 +157,52 @@ def ifft_gi(grids_re_t: torch.Tensor, grids_im_t: torch.Tensor, fft: int,
             or shape[2:] != (n2, N1)):
         raise ValueError(f"grids {shape} and {tuple(grids_im_t.shape)} do "
                          f"not fit fft={fft} gi={gi}")
-    if grids_re_t.dtype != torch.float32 or grids_im_t.dtype != torch.float32:
-        raise ValueError(f"grids must be float32, got {grids_re_t.dtype} "
-                         f"and {grids_im_t.dtype}")
+    if tuple(p1_iq.shape) != (P1_LEN, 2):
+        raise ValueError(f"P1 of shape {tuple(p1_iq.shape)}, expected "
+                         f"({P1_LEN}, 2)")
+    if any(t.dtype != torch.float32 for t in (grids_re_t, grids_im_t, p1_iq)):
+        raise ValueError(f"grids and P1 must be float32, got "
+                         f"{grids_re_t.dtype}, {grids_im_t.dtype} and "
+                         f"{p1_iq.dtype}")
     dev = grids_re_t.device
-    if grids_im_t.device != dev:
-        raise ValueError(f"grids on {dev} and {grids_im_t.device}")
+    if grids_im_t.device != dev or p1_iq.device != dev:
+        raise ValueError(f"grids on {dev} and {grids_im_t.device}, P1 on "
+                         f"{p1_iq.device}")
+    if tables is not None and tables.fft != fft:
+        raise ValueError(f"tables of fft={tables.fft}, expected fft={fft}")
     if dev.type == "cpu":
-        return ifft_gi_einsum(grids_re_t, grids_im_t, fft, gi, scale, mats)
+        return ofdm_tail_plain(grids_re_t, grids_im_t, p1_iq, fft, gi, scale,
+                               tables)
     if dev.type != "cuda":
         raise ValueError(f"no OFDM tail kernel for device {dev}")
-    if mats is None:
-        mats = factor_tensors(fft, scale, dev)
-    mat_shapes = [(N1, N1)] * 2 + [(n2, N1)] * 2 + [(n2, n2)] * 2
-    for m, want in zip(mats, mat_shapes):
-        if m.device != dev or m.dtype != torch.float32:
-            raise ValueError(f"factor matrices must be float32 on {dev}, "
-                             f"got {m.dtype} on {m.device}")
-        if tuple(m.shape) != want:
-            raise ValueError(f"factor matrix {tuple(m.shape)}, expected "
-                             f"{want} for fft={fft}")
-    for t in (grids_re_t, grids_im_t, *mats):
+    if tables is None:
+        tables = tail_tables(fft, scale, dev)
+    for t in (tables.w128, tables.twiddle):
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f"tail tables must be float32 on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+    for t in (grids_re_t, grids_im_t, p1_iq, tables.w128, tables.twiddle):
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("grids and factor matrices must be contiguous "
+            raise ValueError("grids, P1 and tail tables must be contiguous "
                              "and 16-byte aligned")
     b, s = shape[:2]
-    out_re = torch.empty((b, s, fft + gi), dtype=torch.float32, device=dev)
-    out_im = torch.empty_like(out_re)
+    out = torch.empty((b, P1_LEN + s * (fft + gi), 2), dtype=torch.float32,
+                      device=dev)
     if b * s == 0:
-        return out_re, out_im
+        out.copy_(p1_iq.expand_as(out))
+        return out
     from . import _build
 
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.dvbt2ll_ifft_gi(
-            grids_re_t.data_ptr(), grids_im_t.data_ptr(), out_re.data_ptr(),
-            out_im.data_ptr(), *(m.data_ptr() for m in mats), b * s, n2,
-            gi // N1, stream)
+        code = lib.dvbt2ll_ofdm_tail(
+            grids_re_t.data_ptr(), grids_im_t.data_ptr(), p1_iq.data_ptr(),
+            tables.w128.data_ptr(), tables.twiddle.data_ptr(),
+            out.data_ptr(), b, s, n2, gi // N1, stream)
     _build.check(lib, code, "ifft_gi launch")
     ifft_gi.launches += 1
-    return out_re, out_im
+    return out
 
 
 ifft_gi.launches = 0

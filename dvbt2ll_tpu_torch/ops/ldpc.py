@@ -1,12 +1,13 @@
-"""QC-LDPC parity: the CUDA kernel (``csrc/ldpc_parity.cu``) and its plain
-torch twin.
+"""QC-LDPC encoding: the CUDA kernel (``csrc/ldpc_parity.cu``), which
+writes the whole codeword, and its plain torch twin.
 
 The kernel replaces the Pallas TPU kernel
 ``dvbt2ll_tpu/ops/ldpc_pallas.py`` (``_make_kernel`` :33 and the
-row-grouped ``_make_grouped_kernel`` :84): one kernel covers every
-Annex-A table.  The twin is the XLA slice schedule of
-``dvbt2ll_tpu/pipeline.py:210-232`` in torch.  See the kernel source for
-the math, what bounds it on the card and what its design does about it.
+row-grouped ``_make_grouped_kernel`` :84) and the concat of info bits and
+parity after it: one kernel covers every Annex-A table.  The parity twin
+is the XLA slice schedule of ``dvbt2ll_tpu/pipeline.py:210-232`` in
+torch.  See the kernel source for the math, what bounds it on the card
+and what its design does about it.
 """
 from __future__ import annotations
 
@@ -78,28 +79,38 @@ def qc_ldpc_parity_plain(sched: LdpcSchedule,
     return par.to(torch.uint8).reshape(f, sched.plen)
 
 
-def qc_ldpc_parity(sched: LdpcSchedule,
-                   nbch_bits: torch.Tensor) -> torch.Tensor:
-    """(F, nbch) uint8 bits (0/1) -> (F, plen) uint8 LDPC parity.
+def ldpc_codeword_plain(sched: LdpcSchedule,
+                        nbch_bits: torch.Tensor) -> torch.Tensor:
+    """(F, nbch) uint8 bits -> (F, nbch + plen) uint8 codewords: the info
+    bits, then ``qc_ldpc_parity_plain``'s parity."""
+    return torch.cat([nbch_bits, qc_ldpc_parity_plain(sched, nbch_bits)],
+                     dim=1)
+
+
+def ldpc_codeword(sched: LdpcSchedule,
+                  nbch_bits: torch.Tensor) -> torch.Tensor:
+    """(F, nbch) uint8 bits (0/1) -> (F, nbch + plen) uint8 LDPC
+    codewords: the info bits passed through, then the parity.
 
     A CPU tensor goes through the plain twin.  A CUDA tensor launches
     the kernel, or raises: there is no fallback.
-    ``qc_ldpc_parity.launches`` counts kernel launches."""
+    ``ldpc_codeword.launches`` counts kernel launches."""
     if (nbch_bits.dtype != torch.uint8 or nbch_bits.dim() != 2
             or nbch_bits.shape[1] != sched.nbch):
         raise ValueError(f"expected (F, {sched.nbch}) uint8 bits, got "
                          f"{tuple(nbch_bits.shape)} {nbch_bits.dtype}")
     dev = nbch_bits.device
     if dev.type == "cpu":
-        return qc_ldpc_parity_plain(sched, nbch_bits)
+        return ldpc_codeword_plain(sched, nbch_bits)
     if dev.type != "cuda":
         raise ValueError(f"no LDPC kernel for device {dev}")
-    if not nbch_bits.is_contiguous():
-        raise ValueError("nbch_bits must be contiguous")
+    if not nbch_bits.is_contiguous() or nbch_bits.data_ptr() % 8:
+        raise ValueError("nbch_bits must be contiguous and 8-byte aligned")
     if sched.col_ptr.device != dev:
         raise ValueError(f"schedule on {sched.col_ptr.device}, bits on {dev}")
     f = nbch_bits.shape[0]
-    out = torch.empty((f, sched.plen), dtype=torch.uint8, device=dev)
+    out = torch.empty((f, sched.nbch + sched.plen), dtype=torch.uint8,
+                      device=dev)
     if f == 0:
         return out
     from . import _build
@@ -107,13 +118,13 @@ def qc_ldpc_parity(sched: LdpcSchedule,
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.dvbt2ll_ldpc_parity(
+        code = lib.dvbt2ll_ldpc_codeword(
             nbch_bits.data_ptr(), out.data_ptr(), sched.col_ptr.data_ptr(),
             sched.grp.data_ptr(), sched.shift.data_ptr(), f, sched.nbch,
-            sched.q, stream)
-    _build.check(lib, code, "ldpc_parity launch")
-    qc_ldpc_parity.launches += 1
+            sched.q, sched.grp.numel(), stream)
+    _build.check(lib, code, "ldpc_codeword launch")
+    ldpc_codeword.launches += 1
     return out
 
 
-qc_ldpc_parity.launches = 0
+ldpc_codeword.launches = 0

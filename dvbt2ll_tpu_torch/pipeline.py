@@ -21,11 +21,11 @@ import numpy as np
 import torch
 
 from ._bits import gf2_matmul, packbits, unpackbits
-from ._host.observability import TxCounters, check_ts_sync
 from .config import T2Config
 from .convert import PlanTensors, PlpTensors, plan_tensors
+from .observability import TxCounters, check_ts_sync
 from .ops.ifft import ifft_gi, set_full_fp32_matmul, supported
-from .ops.ldpc import qc_ldpc_parity
+from .ops.ldpc import ldpc_codeword
 from .plan import build_plan, min_batch_frames
 
 
@@ -43,7 +43,8 @@ def bb_and_fec(pt: PlpTensors, ts_padded: torch.Tensor) -> torch.Tensor:
     affine, so it is reshapes and slices.  NORMAL mode replaces each sync
     byte with the CRC-8 of the packet before it (a GF(2) product), HIEFF
     drops the sync column, in-band frames carry the static in-band field.
-    Then scrambling, BCH (a GF(2) product) and LDPC parity."""
+    Then scrambling, BCH (a GF(2) product) and the LDPC codeword (one
+    kernel on the card writes info bits and parity)."""
     pp = pt.pp
     cfg = pp.cfg
     bb = pp.bb
@@ -92,7 +93,7 @@ def bb_and_fec(pt: PlpTensors, ts_padded: torch.Tensor) -> torch.Tensor:
     kbch_bits = unpackbits(kb_bytes ^ pt.scramble_b, dim=1)   # (F, kbch)
     bch_par = gf2_matmul(kbch_bits, pt.bch_matrix)
     nbch_bits = torch.cat([kbch_bits, bch_par], dim=1)        # (F, nbch)
-    return torch.cat([nbch_bits, qc_ldpc_parity(pt.ldpc, nbch_bits)], dim=1)
+    return ldpc_codeword(pt.ldpc, nbch_bits)
 
 
 def map_cells_planes(pt: PlpTensors, frame_bits: torch.Tensor):
@@ -176,19 +177,12 @@ def frame_grids(tp: PlanTensors, ts_padded, frame_idx0: int):
 
 def ofdm_tail(tp: PlanTensors, g_re: torch.Tensor,
               g_im: torch.Tensor) -> torch.Tensor:
-    """Transposed grids -> (B, samples, 2) f32 I/Q: the 4-step IFFT with
-    its guard interval (``ops/ifft.py::ifft_gi``), after P1."""
+    """Transposed grids -> (B, samples, 2) f32 I/Q: P1, then the 4-step
+    IFFT with its guard interval, in one call (``ops/ifft.py::ifft_gi``)."""
     cfg = tp.plan.cfg
     t = tp.tail
-    b = g_re.shape[0]
-    body_re, body_im = ifft_gi(g_re, g_im, cfg.fft_points,
-                               cfg.guard_samples, cfg.ofdm_normalization,
-                               t.ifft)
-    out_re = torch.cat([t.p1_re.expand(b, -1), body_re.reshape(b, -1)],
-                       dim=1)
-    out_im = torch.cat([t.p1_im.expand(b, -1), body_im.reshape(b, -1)],
-                       dim=1)
-    return torch.stack([out_re, out_im], dim=-1)
+    return ifft_gi(g_re, g_im, t.p1_iq, cfg.fft_points, cfg.guard_samples,
+                   cfg.ofdm_normalization, t.ifft)
 
 
 def transmit_step_iq_planar(tp: PlanTensors, ts_padded,

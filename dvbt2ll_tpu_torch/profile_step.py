@@ -8,9 +8,9 @@ clock and fenced (window staging and host-to-device copy included), the
 step function alone on a window already on the device (CUDA events), and
 the peak device memory.  Then, at batch 256, each part of the device step
 alone (CUDA events): for vv009 and 8k_normal (the planar tail)
-``bb_and_fec``, ``map_cells_planes``, the rest of the frame builder, the
-OFDM tail kernel (and its plain twin on the same grids), and P1 with the
-I/Q interleave; for 32k_extended (the complex tail) ``bb_and_fec``,
+``bb_and_fec``, ``map_cells_planes``, the rest of the frame builder, and
+the fused OFDM tail kernel, P1 and the final I/Q included (and its plain
+twin on the same grids); for 32k_extended (the complex tail) ``bb_and_fec``,
 ``map_cells``, ``build_frames``, the ``torch.fft`` tail with its guard
 interval, and P1 with ``view_as_real``.  Then a ``torch.profiler`` table
 of device time by operator over 5 vv009 ``step_device`` steps, and
@@ -22,7 +22,18 @@ one ``Transmitter`` of the same 752 frames a step: wall time, and device
 time under ``torch.profiler``.  The ratio of the device step to
 ``step_device`` is printed as an estimate of the device's busy share: two
 clocks, not a trace.
+
+    python -m dvbt2ll_tpu_torch.profile_step --ab PARENT
+
+compares this checkout with another one of the port (an unpacked earlier
+commit) on the same card instead, in turns (parent, this, this, parent),
+each in its own process from its own root: at vv009 and 8k_normal batch
+256, the LDPC step from (F, nbch) bits to the (F, nldpc) codeword (kernel
+plus ``cat`` where the checkout has the parity kernel), the planar tail
+from the grids to the final I/Q (``pipeline.ofdm_tail``) and the whole
+device step, CUDA events over 20 calls each.
 """
+import inspect
 import os
 import subprocess
 import sys
@@ -35,7 +46,7 @@ import torch
 from . import (StreamingExecutor, Transmitter, min_batch_frames,
                named_config, synthetic_ts)
 from .observability import profile_trace
-from .ops.ifft import ifft_gi, ifft_gi_einsum
+from .ops.ifft import ofdm_tail_plain
 from .pipeline import (bb_and_fec, build_frames, frame_grids, map_cells,
                        map_cells_planes, modulate, ofdm_symbols, ofdm_tail,
                        transmit_step_iq, transmit_step_iq_planar)
@@ -55,12 +66,23 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int = STEPS) -> float:
-    """Mean device milliseconds per call, after a warm-up, fenced."""
+    """Mean device milliseconds per call, after a warm-up, fenced.  The
+    timed calls are queued behind a spin kernel that outlasts their
+    launches, so the events measure the card's time, not the host's
+    launch rate (a kernel of tens of microseconds takes the host about
+    as long to launch from Python)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    per_call_s = (time.perf_counter() - t0) / 3
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # cycles at up to 2 GHz for twice the time the host takes to enqueue
+    torch.cuda._sleep(int(2e9 * (2 * iters * per_call_s + 1e-3)))
     start.record()
     for _ in range(iters):
         fn()
@@ -110,18 +132,17 @@ def stages(name: str, batch: int) -> None:
     mapper = cuda_ms(lambda: map_cells_planes(pt, bits))
     grids = cuda_ms(lambda: frame_grids(tp, window, 0))
     g_re, g_im = frame_grids(tp, window, 0)
-    args = (g_re, g_im, cfg.fft_points, cfg.guard_samples,
-            cfg.ofdm_normalization, tp.tail.ifft)
-    tail = cuda_ms(lambda: ifft_gi(*args))
-    plain = cuda_ms(lambda: ifft_gi_einsum(*args))
-    after = cuda_ms(lambda: ofdm_tail(tp, g_re, g_im))
+    tail = cuda_ms(lambda: ofdm_tail(tp, g_re, g_im))
+    plain = cuda_ms(lambda: ofdm_tail_plain(
+        g_re, g_im, tp.tail.p1_iq, cfg.fft_points, cfg.guard_samples,
+        cfg.ofdm_normalization, tp.tail.ifft))
     whole = cuda_ms(lambda: transmit_step_iq_planar(tp, window, 0))
     samples = batch * cfg.samples_per_frame
     print(f"{name} batch {batch} device ms: bb_and_fec {fec:.4f}, "
           f"map_cells_planes {mapper:.4f}, rest of the frame builder "
-          f"{grids - fec - mapper:.4f}, tail kernel {tail:.4f} (plain twin "
-          f"{plain:.4f}), P1 + I/Q interleave {after - tail:.4f}; whole "
-          f"step {whole:.4f} = {samples / whole / 1e3:.1f} Msamples/s")
+          f"{grids - fec - mapper:.4f}, tail kernel with P1 and I/Q "
+          f"{tail:.4f} (plain twin {plain:.4f}); whole step {whole:.4f} = "
+          f"{samples / whole / 1e3:.1f} Msamples/s")
 
 
 def stages_complex(name: str, batch: int) -> None:
@@ -258,11 +279,72 @@ def operators(name: str, batch: int) -> None:
                                     row_limit=25, max_name_column_width=60))
 
 
+# run in each checkout's root by ``ab``: only names every version of the
+# port has, or checked for, and this checkout's ``cuda_ms`` for both
+_AB_SNIPPET = r"""
+import json, sys, time
+import numpy as np, torch
+from dvbt2ll_tpu_torch import Transmitter, named_config, synthetic_ts
+from dvbt2ll_tpu_torch import pipeline
+from dvbt2ll_tpu_torch.ops import ldpc
+STEPS = %d
+%s
+res = {}
+for name in ("vv009_4kshort", "8k_normal"):
+    tx = Transmitter(named_config(name), 256, strict=False,
+                     allow_phase_drift=True, device="cuda")
+    tp = tx.tensors
+    pt = tp.plps[0]
+    window = torch.from_numpy(np.concatenate(
+        [np.zeros(187, np.uint8),
+         synthetic_ts(tx.bytes_per_step, seed=0)])).cuda()
+    frame = pipeline.bb_and_fec(pt, window)
+    nbch = frame[:, :pt.pp.cfg.nbch].contiguous()
+    if hasattr(ldpc, "ldpc_codeword"):
+        fec = lambda: ldpc.ldpc_codeword(pt.ldpc, nbch)
+    else:
+        fec = lambda: torch.cat([nbch, ldpc.qc_ldpc_parity(pt.ldpc, nbch)],
+                                dim=1)
+    assert torch.equal(fec(), frame)
+    g_re, g_im = pipeline.frame_grids(tp, window, 0)
+    res[name] = {
+        "frames": nbch.shape[0],
+        "ldpc_codeword_ms": cuda_ms(fec),
+        "tail_with_p1_iq_ms": cuda_ms(
+            lambda: pipeline.ofdm_tail(tp, g_re, g_im)),
+        "device_step_ms": cuda_ms(lambda: tx._step_fn(tp, window, 0))}
+print(json.dumps(res))
+"""
+
+
+def ab(parent: str, rounds: int = 2) -> None:
+    """This checkout against ``parent`` (another checkout's root), in
+    turns on the same card; one JSON line a run."""
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    order = [("parent", parent), ("change", here)]
+    snippet = _AB_SNIPPET % (STEPS, inspect.getsource(cuda_ms))
+    runs = []
+    for r in range(rounds):
+        runs += order if r % 2 == 0 else order[::-1]
+    for label, root in runs:
+        res = subprocess.run(
+            [sys.executable, "-c", snippet], cwd=root,
+            env=dict(os.environ, PYTHONPATH=os.path.abspath(root)),
+            capture_output=True, text=True, timeout=600)
+        if res.returncode:
+            raise RuntimeError(f"ab {label}: rc {res.returncode}\n"
+                               f"{res.stderr}")
+        print(f"ab {label} {res.stdout.strip().splitlines()[-1]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 1
     print(card_line())
+    if sys.argv[1:2] == ["--ab"]:
+        ab(sys.argv[2])
+        return 0
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     for batch in BATCHES:
         sweep("vv009_4kshort", batch)

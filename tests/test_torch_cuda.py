@@ -16,13 +16,13 @@ from dvbt2ll_tpu_torch import (MultiMuxTransmitter, MuxChannel,
                                make_mesh, min_batch_frames, named_config,
                                plan_tensors, synthetic_ts, transmit_step_iq,
                                vv009_config)
-from dvbt2ll_tpu_torch._host.config import (CodeRate, FrameSize, InputMode,
-                                            T2Config)
-from dvbt2ll_tpu_torch._host.tables.ldpc import qc_entries
+from dvbt2ll_tpu_torch.config import (CodeRate, FrameSize, InputMode,
+                                      T2Config)
+from dvbt2ll_tpu_torch.tables.ldpc import qc_entries
 from dvbt2ll_tpu_torch.executor import _HostCopy
 from dvbt2ll_tpu_torch.ops import ifft
-from dvbt2ll_tpu_torch.ops.ldpc import (ldpc_schedule, qc_ldpc_parity,
-                                        qc_ldpc_parity_plain)
+from dvbt2ll_tpu_torch.ops.ldpc import (ldpc_codeword, ldpc_codeword_plain,
+                                        ldpc_schedule)
 from dvbt2ll_tpu_torch.pipeline import bb_and_fec, select_step_iq
 
 # every named config with a reference-binary golden (planar and complex
@@ -51,20 +51,25 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("frames", [67, 1101])
 @pytest.mark.parametrize("frame_size,rate", _TABLES,
                          ids=[f"{fs.name}-{r.name}" for fs, r in _TABLES])
-def test_kernel_matches_plain_every_table(cuda, frame_size, rate):
+def test_kernel_matches_plain_every_table(cuda, frame_size, rate, frames):
+    """The codeword kernel bit for bit against its twin, at odd frame
+    counts on either side of 8 blocks a SM on an H100 (132 SMs), where
+    the launch changes its block size."""
     cfg = T2Config(frame_size=frame_size, code_rate=rate, fec_blocks=1,
                    ti_blocks=1)
     sched = ldpc_schedule(qc_entries(frame_size, rate, cfg.q_ldpc),
                           cfg.nbch, cfg.ldpc_parity_bits, cfg.q_ldpc, cuda)
     bits = torch.from_numpy(np.random.default_rng(3).integers(
-        0, 2, (67, cfg.nbch), dtype=np.uint8)).to(cuda)
-    before = qc_ldpc_parity.launches
-    got = qc_ldpc_parity(sched, bits)
-    assert qc_ldpc_parity.launches == before + 1
+        0, 2, (frames, cfg.nbch), dtype=np.uint8)).to(cuda)
+    before = ldpc_codeword.launches
+    got = ldpc_codeword(sched, bits)
+    assert ldpc_codeword.launches == before + 1
     torch.cuda.synchronize()
-    assert torch.equal(got, qc_ldpc_parity_plain(sched, bits))
+    assert got.shape == (frames, cfg.ldpc_frame_bits) and got.is_contiguous()
+    assert torch.equal(got, ldpc_codeword_plain(sched, bits))
 
 
 def _snr_db(ref, x):
@@ -78,40 +83,65 @@ def _snr_db(ref, x):
 def _grids(cuda, n2, b=3, s=5, seed=4):
     rng = np.random.default_rng(seed)
     return tuple(torch.from_numpy(rng.standard_normal(
-        (b, s, n2, 128)).astype(np.float32)).to(cuda) for _ in range(2))
+        (b, s, n2, 128)).astype(np.float32)).to(cuda) for _ in range(3))
+
+
+def _tail_vs_twin(cuda, n2, gi_rows, b, s):
+    """The fused tail kernel against its twin: P1 in place bit for bit,
+    the symbols above 120 dB (both float32, the sums taken in another
+    order), the output's shape, strides and dtype as the twin's."""
+    fft, gi = 128 * n2, 128 * gi_rows
+    re, im, noise = _grids(cuda, n2, b, s)
+    p1 = noise.reshape(-1)[:2 * ifft.P1_LEN].reshape(-1, 2)
+    tables = ifft.tail_tables(fft, 0.25, cuda)
+    before = ifft.ifft_gi.launches
+    got = ifft.ifft_gi(re, im, p1, fft, gi, 0.25, tables)
+    assert ifft.ifft_gi.launches == before + 1
+    want = ifft.ofdm_tail_plain(re, im, p1, fft, gi, 0.25, tables)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (b, ifft.P1_LEN + s * (fft + gi), 2)
+    assert got.stride() == want.stride() and got.dtype == torch.float32
+    assert torch.equal(got[:, :ifft.P1_LEN], p1.expand(b, -1, -1))
+    g = got.cpu().numpy()
+    w = want.cpu().numpy()
+    snr = _snr_db(w[..., 0] + 1j * w[..., 1], g[..., 0] + 1j * g[..., 1])
+    assert snr > 120, f"{snr:.1f} dB"
 
 
 @pytest.mark.parametrize("n2,gi_rows", _TAIL,
                          ids=[f"n2_{n}-gi_{g}" for n, g in _TAIL])
 def test_tail_kernel_matches_twin(cuda, n2, gi_rows):
-    """Above 120 dB: both float32, the sums taken in another order."""
-    fft, gi = 128 * n2, 128 * gi_rows
-    re, im = _grids(cuda, n2)
-    mats = ifft.factor_tensors(fft, 0.25, cuda)
-    before = ifft.ifft_gi.launches
-    got = ifft.ifft_gi(re, im, fft, gi, 0.25, mats)
-    assert ifft.ifft_gi.launches == before + 1
-    want = ifft.ifft_gi_einsum(re, im, fft, gi, 0.25, mats)
-    torch.cuda.synchronize()
-    assert got[0].shape == (3, 5, fft + gi)
-    snr = _snr_db(torch.complex(*want).cpu().numpy(),
-                  torch.complex(*got).cpu().numpy())
-    assert snr > 120, f"{snr:.1f} dB"
+    """15 symbols: at 1K and 2K the last tile holds fewer symbols than
+    its room."""
+    _tail_vs_twin(cuda, n2, gi_rows, 3, 5)
+
+
+@pytest.mark.parametrize("n2", [8, 64])
+def test_tail_kernel_walks_many_tiles(cuda, n2):
+    """More tiles than the card holds blocks: each block walks several,
+    through both shared-memory buffers."""
+    _tail_vs_twin(cuda, n2, n2 // 4, 40, 33)
 
 
 def test_tail_kernel_refusals(cuda):
-    re, im = _grids(cuda, 32)
-    mats = ifft.factor_tensors(4096, 1.0, cuda)
+    re, im, _ = _grids(cuda, 32)
+    p1 = torch.zeros((ifft.P1_LEN, 2), device=cuda)
+    tables = ifft.tail_tables(4096, 1.0, cuda)
     wide = torch.zeros((3, 5, 32, 256), device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
-        ifft.ifft_gi(wide[..., ::2], wide[..., 1::2], 4096, 128, 1.0, mats)
+        ifft.ifft_gi(wide[..., ::2], wide[..., 1::2], p1, 4096, 128, 1.0,
+                     tables)
     with pytest.raises(ValueError, match="float32"):
-        ifft.ifft_gi(re.double(), im.double(), 4096, 128, 1.0, mats)
-    on_cpu = ifft.factor_tensors(4096, 1.0, "cpu")
-    with pytest.raises(ValueError, match="factor matrices"):
-        ifft.ifft_gi(re, im, 4096, 128, 1.0, on_cpu)
+        ifft.ifft_gi(re.double(), im.double(), p1, 4096, 128, 1.0, tables)
+    with pytest.raises(ValueError, match="P1 on"):
+        ifft.ifft_gi(re, im, p1.cpu(), 4096, 128, 1.0, tables)
+    with pytest.raises(ValueError, match="do not fit"):
+        ifft.ifft_gi(re[..., :64], im[..., :64], p1, 4096, 128, 1.0, tables)
+    on_cpu = ifft.tail_tables(4096, 1.0, "cpu")
+    with pytest.raises(ValueError, match="tail tables"):
+        ifft.ifft_gi(re, im, p1, 4096, 128, 1.0, on_cpu)
     before = ifft.ifft_gi.launches
-    ifft.ifft_gi(re, im, 4096, 128, 1.0)  # mats built on the card
+    ifft.ifft_gi(re, im, p1, 4096, 128, 1.0)  # tables built on the card
     assert ifft.ifft_gi.launches == before + 1
 
 
@@ -122,11 +152,16 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
                           cuda)
     bits = torch.zeros((4, 2 * cfg.nbch), dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
-        qc_ldpc_parity(sched, bits[:, ::2])
+        ldpc_codeword(sched, bits[:, ::2])
+    with pytest.raises(ValueError, match="aligned"):
+        ldpc_codeword(sched, bits.reshape(-1)[4:4 + 4 * cfg.nbch].reshape(
+            4, cfg.nbch))
+    with pytest.raises(ValueError, match="uint8"):
+        ldpc_codeword(sched, bits[:, :cfg.nbch].int())
     on_cpu = ldpc_schedule(cols, cfg.nbch, cfg.ldpc_parity_bits,
                            cfg.q_ldpc, "cpu")
     with pytest.raises(ValueError, match="schedule"):
-        qc_ldpc_parity(on_cpu, bits[:, :cfg.nbch].contiguous())
+        ldpc_codeword(on_cpu, bits[:, :cfg.nbch].contiguous())
 
 
 def test_tail_refuses_tf32(cuda):
@@ -157,10 +192,10 @@ def test_transmitter_on_card_matches_cpu(cuda, name):
         w = torch.from_numpy(np.concatenate([np.zeros(187, np.uint8), ts]))
         assert torch.equal(bb_and_fec(pt, w.to(cuda)).cpu(),
                            bb_and_fec(pr, w))
-    ldpc_before = qc_ldpc_parity.launches
+    ldpc_before = ldpc_codeword.launches
     tail_before = ifft.ifft_gi.launches
     got = tx(streams if len(streams) > 1 else streams[0])
-    assert qc_ldpc_parity.launches == ldpc_before + len(streams)
+    assert ldpc_codeword.launches == ldpc_before + len(streams)
     assert ifft.ifft_gi.launches == tail_before + select_step_iq(cfg)[1]
     want = ref(streams if len(streams) > 1 else streams[0])
     assert got.shape == want.shape
@@ -211,7 +246,7 @@ def test_executor_output_survives_allocator_reuse(cuda):
 
 
 def _launches():
-    return qc_ldpc_parity.launches, ifft.ifft_gi.launches
+    return ldpc_codeword.launches, ifft.ifft_gi.launches
 
 
 def _drift_sharded(cfg, slots, n_mux):

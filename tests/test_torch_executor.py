@@ -189,8 +189,8 @@ def test_native_ingest_pipe_to_native_sink(tmp_path):
     with no sync errors."""
     if shutil.which("g++") is None:
         pytest.skip("the native ingest ring and sink build with g++")
-    from dvbt2ll_tpu_torch._host.io.ingest import TSIngest
-    from dvbt2ll_tpu_torch._host.io.native_sink import NativeIQSink
+    from dvbt2ll_tpu_torch.io.ingest import TSIngest
+    from dvbt2ll_tpu_torch.io.native_sink import NativeIQSink
 
     cfg = vv009_config()
     b = min_batch_frames(cfg)

@@ -1,13 +1,15 @@
 """The port's QC-LDPC parity against the JAX package and the numpy oracle.
 
-``qc_ldpc_parity_plain`` (the torch twin of the CUDA kernel) must equal
-the JAX package's Pallas kernel, run in interpret mode as its own tests
-run it on the CPU, bit for bit: on the vv009 table (single-block kernel)
-and on a normal-frame table at a frame count that takes the row-grouped
-kernel.  On every Annex-A table it must equal the scatter oracle
-``tables/ldpc.encode_ref``.  The kernel itself runs only on a GPU
-(tests/test_torch_cuda.py); here the wrapper's CPU contract and the
-build plumbing are checked.
+``qc_ldpc_parity_plain`` (the parity of the CUDA kernel's torch twin) must
+equal the JAX package's Pallas kernel, run in interpret mode as its own
+tests run it on the CPU, bit for bit: on the vv009 table (single-block
+kernel) and on a normal-frame table at a frame count that takes the
+row-grouped kernel.  The codeword twin ``ldpc_codeword_plain`` must equal
+the JAX step's info bits with the Pallas parity after them
+(``dvbt2ll_tpu/pipeline.py:233``).  On every Annex-A table both must
+equal the scatter oracle ``tables/ldpc.encode_ref``.  The kernel itself
+runs only on a GPU (tests/test_torch_cuda.py); here the wrapper's CPU
+contract and the build plumbing are checked.
 """
 import os
 import stat
@@ -21,8 +23,8 @@ from dvbt2ll_tpu.config import CodeRate, FrameSize, T2Config, vv009_config
 from dvbt2ll_tpu.ops.ldpc_pallas import _tile_for, qc_ldpc_parity_pallas
 from dvbt2ll_tpu.tables import ldpc
 from dvbt2ll_tpu_torch.ops import _build
-from dvbt2ll_tpu_torch.ops.ldpc import (ldpc_schedule, qc_ldpc_parity,
-                                        qc_ldpc_parity_plain)
+from dvbt2ll_tpu_torch.ops.ldpc import (ldpc_codeword, ldpc_codeword_plain,
+                                        ldpc_schedule, qc_ldpc_parity_plain)
 
 _TABLES = [(fs, r) for fs in (FrameSize.SHORT, FrameSize.NORMAL)
            for r in (CodeRate.C1_3, CodeRate.C2_5, CodeRate.C1_2,
@@ -87,6 +89,37 @@ def test_plain_matches_oracle_every_table(frame_size, rate):
         np.testing.assert_array_equal(got[i], ref)
 
 
+@pytest.mark.parametrize("frame_size,rate", _TABLES,
+                         ids=[f"{fs.name}-{r.name}" for fs, r in _TABLES])
+def test_codeword_matches_oracle_every_table(frame_size, rate):
+    """The whole codeword: the info bits unchanged, then the oracle's
+    parity."""
+    nbch, plen, q, cols = _table(frame_size, rate)
+    nb = np.random.default_rng(4).integers(0, 2, (2, nbch), dtype=np.uint8)
+    got = ldpc_codeword_plain(ldpc_schedule(cols, nbch, plen, q, "cpu"),
+                              torch.from_numpy(nb)).numpy()
+    assert got.shape == (2, nbch + plen) and got.dtype == np.uint8
+    for i in range(2):
+        np.testing.assert_array_equal(got[i, :nbch], nb[i])
+        np.testing.assert_array_equal(
+            got[i, nbch:], ldpc.encode_ref(nb[i], frame_size, rate, plen, q))
+
+
+def test_codeword_matches_jax_info_and_pallas_parity():
+    cfg = vv009_config()
+    cols = ldpc.qc_entries(cfg.frame_size, cfg.code_rate, cfg.q_ldpc)
+    nb = np.random.default_rng(8).integers(0, 2, (5, cfg.nbch),
+                                           dtype=np.uint8)
+    par = np.asarray(qc_ldpc_parity_pallas(
+        cols, cfg.nbch, cfg.ldpc_parity_bits, cfg.q_ldpc, jnp.asarray(nb),
+        interpret=True))
+    want = np.asarray(jnp.concatenate([jnp.asarray(nb), par], axis=1))
+    got = ldpc_codeword(ldpc_schedule(cols, cfg.nbch, cfg.ldpc_parity_bits,
+                                      cfg.q_ldpc, "cpu"),
+                        torch.from_numpy(nb)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 def test_wrapper_on_cpu_takes_the_twin_and_checks_input():
     cfg = vv009_config()
     cols = ldpc.qc_entries(cfg.frame_size, cfg.code_rate, cfg.q_ldpc)
@@ -94,18 +127,18 @@ def test_wrapper_on_cpu_takes_the_twin_and_checks_input():
                           "cpu")
     bits = torch.from_numpy(np.random.default_rng(5).integers(
         0, 2, (3, cfg.nbch), dtype=np.uint8))
-    before = qc_ldpc_parity.launches
-    assert torch.equal(qc_ldpc_parity(sched, bits),
-                       qc_ldpc_parity_plain(sched, bits))
-    assert qc_ldpc_parity.launches == before  # no kernel on the CPU
+    before = ldpc_codeword.launches
+    assert torch.equal(ldpc_codeword(sched, bits),
+                       ldpc_codeword_plain(sched, bits))
+    assert ldpc_codeword.launches == before  # no kernel on the CPU
     with pytest.raises(ValueError):
-        qc_ldpc_parity(sched, bits.to(torch.int32))
+        ldpc_codeword(sched, bits.to(torch.int32))
     with pytest.raises(ValueError):
-        qc_ldpc_parity(sched, bits[:, :-360])
+        ldpc_codeword(sched, bits[:, :-360])
     with pytest.raises(ValueError):
         ldpc_schedule(cols, cfg.nbch, cfg.ldpc_parity_bits, cfg.q_ldpc + 1,
                       "cpu")
-    assert qc_ldpc_parity(sched, bits[:0]).shape == (0, cfg.ldpc_parity_bits)
+    assert ldpc_codeword(sched, bits[:0]).shape == (0, cfg.ldpc_frame_bits)
 
 
 def _fake_nvcc(path, body):

@@ -19,6 +19,7 @@ from dvbt2ll_tpu.plan import build_plan as jax_build_plan
 from dvbt2ll_tpu_torch import (Transmitter, build_plan, min_batch_frames,
                                named_config, plan_tensors, vv009_config)
 from dvbt2ll_tpu_torch.config import FFTSize
+from dvbt2ll_tpu_torch.ops.ifft import TailTables
 from dvbt2ll_tpu_torch.ops.ldpc import LdpcSchedule
 from dvbt2ll_tpu_torch.pipeline import select_step_iq
 
@@ -116,7 +117,7 @@ def _assert_same_tensors(a, b):
         x, y = getattr(a, f.name), getattr(b, f.name)
         if isinstance(x, torch.Tensor):
             assert x.dtype == y.dtype and torch.equal(x, y), f.name
-        elif isinstance(x, LdpcSchedule) or f.name == "tail":
+        elif isinstance(x, (LdpcSchedule, TailTables)) or f.name == "tail":
             _assert_same_tensors(x, y)
         elif isinstance(x, tuple) and x and isinstance(x[0], torch.Tensor):
             assert all(torch.equal(u, v) for u, v in zip(x, y)), f.name
