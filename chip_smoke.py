@@ -23,6 +23,15 @@ imports no JAX.  Phases, each of which raises on failure:
    ``Transmitter`` on the card, the twelve planar ones and the five of the
    complex ``torch.fft`` tail (16K, 32K, GI 1216): FEC bits exact, IQ
    above 100 dB;
+4b. the JAX package's config matrix (``MATRIX``: every config of
+   tests/test_configs_e2e.py and tests/test_modes.py), each case at its
+   test batch through ``Transmitter.step_device`` on the card against the
+   port on the CPU (FEC bits exact, IQ above 120 dB, ``ldpc_parity`` once
+   a step, ``ifft_gi`` once a step on the planar tail and never on the
+   complex one; the two streaming cases one Transmitter a step with
+   ``start_phases``, resumed from the previous one's checkpoint), then two
+   steps at batch 256 in drift mode (HIEFF: the largest multiple of its
+   smallest batch up to 256), checked like phase 6, each timed;
 5. the main path at full width: vv009 at batch 256 through
    ``Transmitter.step_device``.  The first step's FEC bits equal the port
    on the CPU exactly and its IQ is above 120 dB SNR against it; then
@@ -62,7 +71,7 @@ imports no JAX.  Phases, each of which raises on failure:
    peer-to-peer copy in a profiled step, else a line saying why not.
 
 The kernel launch counts are set to 0 just before each path of phases
-5-9 and read just after.  Prints the kernel table as one JSON line, then,
+4b-9 and read just after.  Prints the kernel table as one JSON line, then,
 as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero,
 without that line, when there is no CUDA device or any phase fails.
 """
@@ -104,6 +113,108 @@ TAIL_CASES = (((BATCH, 7), 4096, 128, "vv009_4kshort"),
               ((16, 8), 1024, 128, None), ((16, 8), 1024, 256, None),
               ((16, 8), 2048, 256, None), ((16, 8), 4096, 1024, None),
               ((16, 8), 8192, 2048, None))
+# The JAX package's config matrix (tests/test_configs_e2e.py and
+# tests/test_modes.py), one case per config its tests run: ``kw`` builds a
+# T2Config with ``T2Config.from_dict`` (enums by name, the rest default,
+# which is vv009), at the test's ``batch`` on TS of ``seed``; ``steps`` > 1
+# drives one Transmitter a step with ``start_phases=bb.next_phase``.
+# tests/test_torch_configs_e2e.py holds each case against the JAX package
+# and refmodel on the CPU, and this script on the card against the CPU.
+_2K = dict(frame_size="SHORT", code_rate="C1_2", constellation="QPSK",
+           rotation="OFF", fft_size="FFT_2K", guard_interval="GI_1_8",
+           pilot_pattern="PP1", fec_blocks=1, ti_blocks=1, t2_frames=2)
+_MODES = dict(_2K, num_data_symbols=8, l1_constellation="BPSK")
+_8K = dict(frame_size="NORMAL", code_rate="C2_3", constellation="QAM64",
+           rotation="OFF", fft_size="FFT_8K", guard_interval="GI_1_16",
+           pilot_pattern="PP3", fec_blocks=2, ti_blocks=1, t2_frames=2,
+           num_data_symbols=8)
+_64QAM = dict(frame_size="SHORT", code_rate="C2_3", constellation="QAM64",
+              rotation="OFF", fec_blocks=2, ti_blocks=1, t2_frames=2)
+_8K_EXT = dict(_64QAM, fft_size="FFT_8K", guard_interval="GI_1_16",
+               pilot_pattern="PP3", carrier_mode="EXTENDED",
+               num_data_symbols=8)
+_E2E, _MODES_PY = "tests/test_configs_e2e.py", "tests/test_modes.py"
+
+
+def _case(id, test, kw, seed, batch=1, steps=1):
+    return dict(id=id, test=test, kw=kw, seed=seed, batch=batch,
+                steps=steps)
+
+
+MATRIX = (
+    _case("8k_normal_pp3", f"{_E2E}:23", _8K, 31),
+    _case("32k_extended", f"{_E2E}:34", dict(
+        frame_size="NORMAL", code_rate="C4_5", fft_size="FFT_32K",
+        carrier_mode="EXTENDED", fec_blocks=4, ti_blocks=2,
+        num_data_symbols=4), 31),
+    _case("16k_extended_16qam", f"{_E2E}:47", dict(
+        frame_size="SHORT", code_rate="C3_5", constellation="QAM16",
+        fft_size="FFT_16K", guard_interval="GI_1_8", pilot_pattern="PP3",
+        carrier_mode="EXTENDED", fec_blocks=3, ti_blocks=1,
+        num_data_symbols=6), 31),
+    _case("2k_qpsk", f"{_E2E}:58", dict(_2K, num_data_symbols=16), 31),
+    _case("1k_qpsk", f"{_E2E}:197",
+          dict(_2K, fft_size="FFT_1K", num_data_symbols=24), 51),
+    _case("vv009_eq", f"{_E2E}:68", dict(equalization=True), 31),
+    *(_case(f"vv009_eq_bw{i}", f"{_E2E}:376",
+            dict(equalization=True, bandwidth=bw), 84 + i)
+      for i, bw in ((0, "BW_1_7_MHZ"), (3, "BW_7_0_MHZ"),
+                    (5, "BW_10_0_MHZ"))),
+    *(_case(f"miso_2k_{g.lower()}", f"{_E2E}:81", dict(
+        _2K, num_data_symbols=8, preamble="T2_MISO", miso_group=g,
+        l1_constellation="BPSK"), 91) for g in ("TX1", "TX2")),
+    *(_case(f"miso_ext_{name}_{g.lower()}", f"{_E2E}:115", dict(
+        _64QAM, fft_size=fft, guard_interval=gi, pilot_pattern=pp,
+        carrier_mode="EXTENDED", preamble="T2_MISO", miso_group=g,
+        num_data_symbols=nds), seed)
+      for name, fft, gi, pp, g, nds, seed in (
+          ("8k", "FFT_8K", "GI_1_16", "PP3", "TX1", 8, 122),
+          ("16k", "FFT_16K", "GI_1_16", "PP3", "TX2", 6, 129),
+          ("32k", "FFT_32K", "GI_1_32", "PP7", "TX1", 4, 130),
+          ("32k", "FFT_32K", "GI_1_32", "PP7", "TX2", 4, 131))),
+    _case("miso_tr_8k_ext", f"{_E2E}:138", dict(
+        _8K_EXT, preamble="T2_MISO", miso_group="TX1", papr="TR"), 130),
+    _case("papr_both", f"{_E2E}:163", dict(papr="BOTH",
+                                           num_data_symbols=4), 131),
+    _case("papr_tr_8k_ext", f"{_E2E}:182", dict(_8K_EXT, papr="TR"), 132),
+    _case("papr_tr", f"{_E2E}:208", dict(papr="TR", num_data_symbols=4),
+          52),
+    _case("papr_ace", f"{_E2E}:342", dict(papr="ACE"), 82),
+    *(_case(f"l1_{c.lower()}", f"{_E2E}:222", dict(
+        _2K, num_data_symbols=12, l1_constellation=c), 53 + i)
+      for i, c in ((1, "QPSK"), (2, "QAM16"), (3, "QAM64"))),
+    _case("v131_l1_scrambled", f"{_E2E}:237",
+          dict(version="V131", l1_scrambled=True), 57),
+    _case("v131_reserved_bias", f"{_E2E}:328",
+          dict(version="V131", reserved_bias_bits=True), 81),
+    *(_case(f"t2gi_{name}", f"{_E2E}:253", dict(
+        _64QAM, fft_size=fft, guard_interval=gi, pilot_pattern=pp,
+        num_data_symbols=4), seed)
+      for name, fft, gi, pp, seed in (
+          ("8k_19_128_pp8", "FFT_8K_T2GI", "GI_19_128", "PP8", 67),
+          ("32k_19_256_pp8", "FFT_32K_T2GI", "GI_19_256", "PP8", 68),
+          ("32k_1_128_pp7", "FFT_32K_T2GI", "GI_1_128", "PP7", 68))),
+    _case("ti_off_vv009", f"{_E2E}:271", dict(ti_blocks=0), 91, batch=2),
+    _case("ti_off_8k_normal", f"{_E2E}:290", dict(_8K, ti_blocks=0), 92),
+    *(_case(f"t2lite_{mode}", f"{_E2E}:302", dict(
+        preamble=pre, miso_group="TX1", version="V131", code_rate="C3_4",
+        num_data_symbols=nds), seed)
+      for mode, pre, nds, seed in (("siso", "T2_LITE_SISO", 3, 74),
+                                   ("miso", "T2_LITE_MISO", 4, 75))),
+    _case("vv009_fef", f"{_E2E}:357",
+          dict(fef_length=4096, fef_interval=2), 83),
+    _case("hieff", f"{_MODES_PY}:36,50", dict(_MODES, input_mode="HIEFF"),
+          82, batch=17),
+    _case("inband", f"{_MODES_PY}:59,73", dict(
+        _MODES, in_band="ON", fec_blocks=2, ts_rate=4_000_000), 84,
+        batch=2),
+    _case("inband_hieff", f"{_MODES_PY}:82", dict(
+        _MODES, in_band="ON", input_mode="HIEFF", fec_blocks=2), 85,
+        batch=187),
+    _case("inband_stream", f"{_MODES_PY}:96", dict(
+        _MODES, in_band="ON", fec_blocks=2), 86, batch=2, steps=3),
+    _case("normal_drift", f"{_MODES_PY}:123", _MODES, 87, steps=4),
+)
 SHARD_MUX = 8          # BASELINE.json config 5: 8+ independent channels
 SHARD_FRAME = 2
 SHARD_STEPS = 2
@@ -328,6 +439,148 @@ def full_width_phase(torch, dev, name: str, steps: int) -> dict:
           f"the CPU's; step 0 IQ vs CPU {snr:.2f} dB; {steps} streaming "
           f"steps in {dt:.4f} s = {rate:.2f} Msamples/s; launches {counts}")
     return counts
+
+
+def matrix_config(case):
+    """A MATRIX case's T2Config (the port's)."""
+    from dvbt2ll_tpu_torch.config import T2Config
+    return T2Config.from_dict(case["kw"]).validate()
+
+
+def matrix_case(torch, dev, case) -> dict:
+    """One MATRIX case at its test batch, on ``dev`` against the port on
+    the CPU, through ``Transmitter.step_device``: a step's FEC bits equal
+    exactly, its IQ is above IQ_CPU_DB, and it launches ``ldpc_parity``
+    once and ``ifft_gi`` once on the planar tail, never on the complex
+    one.  With ``steps`` > 1 each step has its own Transmitter, built with
+    ``start_phases`` = the previous plan's ``bb.next_phase`` and resumed
+    from the previous one's checkpoint, on either device.  Returns the
+    tail, the lowest SNR, the launches summed over the steps and the
+    steps' time on the host clock, fenced."""
+    from dvbt2ll_tpu_torch import Transmitter, synthetic_ts
+    from dvbt2ll_tpu_torch.pipeline import bb_and_fec, select_step_iq
+    cfg = matrix_config(case)
+    planar = select_step_iq(cfg)[1]
+    b, steps = case["batch"], case["steps"]
+    kw = dict(strict=False, allow_phase_drift=True)
+    tx = ref = ts = None
+    pos, phase, snrs, dt = 0, 0, [], 0.0
+    total = {"ldpc_parity": 0, "ifft_gi": 0}
+    for k in range(steps):
+        states = None if tx is None else (tx.state_dict(), ref.state_dict())
+        tx = Transmitter(cfg, b, start_phases=phase, device=dev, **kw)
+        ref = Transmitter(cfg, b, start_phases=phase, device="cpu", **kw)
+        if states:
+            tx.load_state(states[0])
+            ref.load_state(states[1])
+        n = tx.bytes_per_step
+        if ts is None:
+            ts = synthetic_ts(steps * n, seed=case["seed"])
+        fresh, pos = ts[pos:pos + n], pos + n
+        window = np.concatenate([tx.state_dict()["carries"][0], fresh])
+        bits = bb_and_fec(tx.tensors.plps[0], torch.from_numpy(window).to(dev))
+        bits_ref = bb_and_fec(ref.tensors.plps[0], torch.from_numpy(window))
+        require(torch.equal(bits.cpu(), bits_ref),
+                f"{case['id']} step {k}: FEC bits, card != CPU")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        iq = tx.step_device(fresh)
+        torch.cuda.synchronize()
+        dt += time.perf_counter() - t0
+        counts = launches()
+        require(counts == {"ldpc_parity": 1, "ifft_gi": int(planar)},
+                f"{case['id']} step {k}: launches {counts}")
+        total = {key: total[key] + counts[key] for key in total}
+        got = iq.cpu().numpy().reshape(b, -1).view(np.complex64)
+        snrs.append(snr_db(ref(fresh), got))
+        require(snrs[-1] > IQ_CPU_DB, f"{case['id']} step {k}: IQ vs CPU "
+                f"{snrs[-1]:.2f} dB")
+        require(tuple(iq.shape) == (b, cfg.samples_per_frame, 2)
+                and bool(torch.isfinite(iq).all()),
+                f"{case['id']} step {k}: shape {tuple(iq.shape)} or "
+                f"non-finite IQ")
+        phase = tx.plan.plps[0].bb.next_phase
+    return dict(tail="planar" if planar else "complex", snr=min(snrs),
+                launches=total, ms=dt * 1e3)
+
+
+def full_width_batch(cfg) -> int:
+    """BATCH, or for HIEFF, whose steps must hold whole TS packets, the
+    largest multiple of its smallest batch that is not above BATCH."""
+    from dvbt2ll_tpu_torch import min_batch_frames
+    from dvbt2ll_tpu_torch.config import InputMode
+    if cfg.input_mode != InputMode.HIEFF:
+        return BATCH
+    m = min_batch_frames(cfg)
+    return max(m, BATCH - BATCH % m)
+
+
+def matrix_full_width(torch, dev, case) -> dict:
+    """A MATRIX case at ``full_width_batch`` in drift mode, as
+    ``full_width_phase`` runs its configs: one step, then a second one,
+    each timed on the host clock (the first pays the geometry's first
+    call: allocations and, for ``torch.fft``, its plans); the output's
+    shape, finite values, frame counter, carry, counters and launches.
+    The rates are information."""
+    from dvbt2ll_tpu_torch import Transmitter, synthetic_ts
+    from dvbt2ll_tpu_torch.pipeline import select_step_iq
+    cfg = matrix_config(case)
+    planar = select_step_iq(cfg)[1]
+    b = full_width_batch(cfg)
+    tx = Transmitter(cfg, b, strict=False, allow_phase_drift=True,
+                     device=dev)
+    n = tx.bytes_per_step
+    ts = synthetic_ts(2 * n, seed=SEED + case["seed"])
+    torch.cuda.synchronize()
+    reset_launches()
+    ms = []
+    for k in range(2):
+        t0 = time.perf_counter()
+        out = tx.step_device(ts[k * n:(k + 1) * n])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = launches()
+    name = f"{case['id']} batch {b}"
+    require(tuple(out.shape) == (b, cfg.samples_per_frame, 2),
+            f"{name}: output shape {tuple(out.shape)}")
+    require(bool(torch.isfinite(out).all()), f"{name}: non-finite IQ")
+    state = tx.state_dict()
+    require(state["frame_idx"] == 2 * b % cfg.t2_frames
+            and state["steps_done"] == 2, f"{name}: frame counter")
+    require(np.array_equal(state["carries"][0], ts[-187:]), f"{name}: carry")
+    require(tx.counters.frames == 2 * b, f"{name}: counters")
+    require(counts == {"ldpc_parity": 2, "ifft_gi": 2 * int(planar)},
+            f"{name}: launches {counts} in 2 steps")
+    return dict(batch=b, launches=counts, ms=ms,
+                rate=b * cfg.samples_per_frame / ms[1] / 1e3)
+
+
+def matrix_phase(torch, dev) -> dict:
+    """Phase 4b: every MATRIX case at its test batch against the CPU
+    (``matrix_case``), then at full width (``matrix_full_width``); one
+    line a case.  Returns the launches of each part, summed."""
+    t_start = time.perf_counter()
+    paths = {"matrix": {"ldpc_parity": 0, "ifft_gi": 0},
+             "matrix_full_width": {"ldpc_parity": 0, "ifft_gi": 0}}
+    for case in MATRIX:
+        got = matrix_case(torch, dev, case)
+        wide = matrix_full_width(torch, dev, case)
+        for path, counts in (("matrix", got["launches"]),
+                             ("matrix_full_width", wide["launches"])):
+            for key in counts:
+                paths[path][key] += counts[key]
+        print(f"matrix {case['id']} ({case['test']}; {got['tail']} tail): "
+              f"batch {case['batch']} x {case['steps']} step(s), FEC "
+              f"bit-exact, IQ vs CPU {got['snr']:.2f} dB, launches "
+              f"{got['launches']}, {got['ms']:.2f} ms; batch "
+              f"{wide['batch']}: first step {wide['ms'][0]:.2f} ms, second "
+              f"{wide['ms'][1]:.2f} ms = {wide['rate']:.2f} Msamples/s, "
+              f"launches {wide['launches']}")
+        torch.cuda.empty_cache()
+    print(f"matrix: {len(MATRIX)} cases passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
+    return paths
 
 
 def _check_fef(cfg, fef_part, stream, start: int, frames: int) -> None:
@@ -940,12 +1193,14 @@ def main() -> int:
     ldpc_times = ldpc_phase(torch, dev, rng)
     tail_times = tail_phase(torch, dev, rng)
     golden_phase(torch, dev)
+    matrix_paths = matrix_phase(torch, dev)
     paths = {"vv009_4kshort": full_width_phase(torch, dev, "vv009_4kshort",
                                                STREAM_STEPS),
              "8k_normal": full_width_phase(torch, dev, "8k_normal",
                                            STEPS_8K),
              "32k_extended": full_width_phase(torch, dev, "32k_extended",
                                               STEPS_32K)}
+    paths.update(matrix_paths)
     paths["multiplp_fef"], mplp_rate = multiplp_phase(torch, dev)
     with tempfile.TemporaryDirectory() as tmp:
         paths["executor"] = executor_phase(torch, dev)

@@ -13,8 +13,10 @@ serialized verbatim into L1 signalling fields.
 
 The port's own copy of ``dvbt2ll_tpu/config.py`` (the same fields, enums,
 derived properties and ``validate()`` messages; tests/test_torch_standalone.py
-holds the two equal), plus the named configurations of
-``bench.py:_named_config``.
+and tests/test_torch_config.py hold the two equal), plus the named
+configurations of ``bench.py:_named_config``.  One rule is the port's own:
+``validate()`` refuses a frame of more OFDM symbols than the PN sequence has
+chips, which the JAX package accepts and then cannot plan.
 """
 from __future__ import annotations
 
@@ -24,6 +26,10 @@ import math
 from dataclasses import dataclass
 from enum import IntEnum
 from functools import cached_property
+
+# chips of the per-symbol PN sequence (tables/sequences.py::pn_sequence):
+# the most OFDM symbols a T2 frame can have
+PN_CHIPS = 2624
 
 
 class CodeRate(IntEnum):
@@ -1019,6 +1025,15 @@ class T2Config:
                 raise ValueError(
                     "fef_interval must divide t2_frames (whole FEF parts "
                     "per super-frame)")
+        if self.num_symbols > PN_CHIPS:
+            # the port's own rule, checked last so that every config the
+            # JAX package refuses is refused with its message; the JAX
+            # package accepts these and its planner then indexes past the
+            # PN sequence (dvbt2ll_tpu/tables/pilots.py:212)
+            raise ValueError(
+                f"{self.num_symbols} OFDM symbols a T2 frame (P2 and data) "
+                f"exceed the {PN_CHIPS} chips of the frame's PN sequence, "
+                f"one chip a symbol (EN 302 755 table 35)")
         return self
 
 

@@ -138,7 +138,7 @@ class MultiMuxTransmitter:
     # ----------------------------------------------------- checkpoint/resume
     def state_dict(self) -> dict:
         """Each channel's ShardedTransmitter state under ``ch{i}_`` (the
-        JAX package's keys)."""
+        JAX package's keys, plus ``ch{i}_cfg``, which it ignores)."""
         return {f"ch{i}_{k}": v
                 for i, stx in enumerate(self.transmitters)
                 for k, v in stx.state_dict().items()}
@@ -146,7 +146,10 @@ class MultiMuxTransmitter:
     def load_state(self, state: dict) -> None:
         """The keys do not record the channel count, so a checkpoint whose
         ``ch{i}_`` prefixes are not exactly this transmitter's channels
-        (one missing, or one more) is refused with ValueError."""
+        (one missing, or one more) is refused with ValueError, as is one
+        whose ``ch{i}_cfg`` is not channel i's config (channels saved in
+        another order).  Every channel is checked before any is loaded,
+        so a refused checkpoint changes nothing."""
         found = set()
         for k in state:
             m = _CHANNEL_KEY.match(k)
@@ -160,10 +163,16 @@ class MultiMuxTransmitter:
                              f"this transmitter has {sorted(want)}")
         # split generically by prefix so fields ShardedTransmitter adds
         # later round-trip without touching this class
-        for i, stx in enumerate(self.transmitters):
-            prefix = f"ch{i}_"
-            stx.load_state({k[len(prefix):]: v for k, v in state.items()
-                            if k.startswith(prefix)})
+        per_channel = [{k[len(f"ch{i}_"):]: v for k, v in state.items()
+                        if k.startswith(f"ch{i}_")}
+                       for i in range(len(self.transmitters))]
+        for i, (stx, sub) in enumerate(zip(self.transmitters, per_channel)):
+            try:
+                stx.check_state(sub)
+            except (KeyError, ValueError) as e:
+                raise ValueError(f"checkpoint channel {i}: {e}") from e
+        for stx, sub in zip(self.transmitters, per_channel):
+            stx.load_state(sub)
 
     def save(self, path: str) -> None:
         np.savez(path, **self.state_dict())

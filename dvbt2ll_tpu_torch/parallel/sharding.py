@@ -302,17 +302,42 @@ class ShardedTransmitter:
     # ----------------------------------------------------- checkpoint/resume
     def state_dict(self) -> dict:
         """Cross-step state: the per-mux/per-PLP TS carry windows and the
-        step counter (the T2 frame index is derived from it).  The JAX
+        step counter (the T2 frame index is derived from it), plus the
+        config as ``T2Config.to_json()`` under ``cfg``.  The JAX
         ``ShardedTransmitter``'s keys and shapes, so checkpoints move
-        between the packages."""
-        return {"carries": self._carries.copy(), "step_no": self._step_no}
+        between the packages: its ``load_state`` reads only ``carries``
+        and ``step_no``."""
+        return {"carries": self._carries.copy(), "step_no": self._step_no,
+                "cfg": self.cfg.to_json()}
 
-    def load_state(self, state: dict) -> None:
-        carries = np.asarray(state["carries"], dtype=np.uint8)
+    def check_state(self, state: dict) -> None:
+        """Raise ValueError if ``state`` is not a checkpoint of this
+        transmitter: carries of another shape, a ``cfg`` key holding
+        another config, or a step count that is not an integer.  A
+        checkpoint without ``cfg`` (the JAX package's) is checked on the
+        rest.  Changes nothing."""
+        carries = np.asarray(state["carries"])
         if carries.shape != self._carries.shape:
             raise ValueError(f"carries of shape {carries.shape}, expected "
                              f"{self._carries.shape}")
-        self._carries = carries.copy()
+        if "cfg" in state:
+            saved = T2Config.from_json(str(np.asarray(state["cfg"])))
+            if saved != self.cfg:
+                differ = [f.name for f in dataclasses.fields(T2Config)
+                          if getattr(saved, f.name) != getattr(self.cfg,
+                                                               f.name)]
+                raise ValueError(f"checkpoint of another config (fields "
+                                 f"{differ} differ)")
+        step_no = np.asarray(state["step_no"])
+        if step_no.shape or step_no.dtype.kind not in "iu":
+            raise ValueError(f"step_no {state['step_no']!r} is not an "
+                             f"integer")
+
+    def load_state(self, state: dict) -> None:
+        """Load a checkpoint after ``check_state``: a refused one changes
+        nothing."""
+        self.check_state(state)
+        self._carries = np.asarray(state["carries"], dtype=np.uint8).copy()
         self._step_no = int(state["step_no"])
 
     def save(self, path: str) -> None:

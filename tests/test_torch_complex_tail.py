@@ -24,6 +24,7 @@ from dvbt2ll_tpu_torch import pipeline as tpipe
 from dvbt2ll_tpu_torch.config import NAMED_CONFIGS, InputMode
 from dvbt2ll_tpu_torch.convert import ComplexTail, PlanarTail
 from dvbt2ll_tpu_torch.ops.ifft import supported
+from tests.torch_compare import snr_db
 
 # (name, frames): 32K extended carriers, 16K with PAPR and L1 QPSK, and the
 # 8K T2-Lite MISO config whose guard interval (19/128: 1216 samples) is
@@ -38,14 +39,6 @@ def _two_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(prev)
-
-
-def _snr_db(ref, x):
-    ref = np.asarray(ref, np.complex128).ravel()
-    x = np.asarray(x, np.complex128).ravel()
-    err = np.sum(np.abs(x - ref) ** 2)
-    return np.inf if err == 0 else 10 * np.log10(np.sum(np.abs(ref) ** 2)
-                                                 / err)
 
 
 @pytest.fixture(scope="module", params=_CASES, ids=[c[0] for c in _CASES])
@@ -77,7 +70,7 @@ def test_modulate_matches_jax(case):
     got = tpipe.modulate(tp, torch.from_numpy(grids))
     assert got.dtype == torch.complex64 and tuple(got.shape) == iq.shape
     assert iq.shape == (plan.batch_frames, plan.cfg.samples_per_frame)
-    snr = _snr_db(iq, got.numpy())
+    snr = snr_db(iq, got.numpy())
     assert snr > 120, f"{snr:.1f} dB"
 
 
@@ -90,8 +83,8 @@ def test_transmit_step_iq_matches_jax(case):
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
     assert got.is_contiguous()
     got = got.numpy()
-    snr = _snr_db(want[..., 0] + 1j * want[..., 1],
-                  got[..., 0] + 1j * got[..., 1])
+    snr = snr_db(want[..., 0] + 1j * want[..., 1],
+                 got[..., 0] + 1j * got[..., 1])
     assert snr > 120, f"{snr:.1f} dB"
 
 
@@ -107,8 +100,8 @@ def test_complex_tail_equals_planar_tail(name):
     cplx = tpipe.transmit_step_iq(
         plan_tensors(plan, "cpu", planar=False), window, 1).numpy()
     assert cplx.shape == planar.shape
-    snr = _snr_db(planar[..., 0] + 1j * planar[..., 1],
-                  cplx[..., 0] + 1j * cplx[..., 1])
+    snr = snr_db(planar[..., 0] + 1j * planar[..., 1],
+                 cplx[..., 0] + 1j * cplx[..., 1])
     assert snr > 120, f"{snr:.1f} dB"
 
 

@@ -4,12 +4,15 @@ machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-(``--noconftest``: tests/conftest.py sets up JAX.)
+(``--noconftest``: tests/conftest.py sets up JAX.)  It imports nothing
+from ``tests``: where an installed package is named ``tests``, that name
+does not reach this directory.
 """
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from dvbt2ll_tpu_torch import (MultiMuxTransmitter, MuxChannel,
                                ShardedTransmitter, StreamingExecutor,
                                Transmitter, build_plan, grids_symbol_sharded,
@@ -335,3 +338,19 @@ def test_symbol_sharded_on_card(cuda):
          synthetic_ts(plan.ts_bytes_in, seed=40)])).to(cuda)
     assert torch.equal(fn(padded, 0), transmit_step_iq(
         plan_tensors(plan, cuda, False), padded, 0))
+
+
+@pytest.mark.parametrize("case", chip_smoke.MATRIX,
+                         ids=[c["id"] for c in chip_smoke.MATRIX])
+def test_config_matrix_on_card_matches_cpu(cuda, case):
+    """Every case of the JAX package's config matrix at its test batch
+    (``chip_smoke.matrix_case``): FEC bits equal the port on the CPU,
+    IQ above 120 dB, ``ldpc_parity`` once a step and ``ifft_gi`` once a
+    step on the planar tail only; the streaming cases one Transmitter a
+    step with ``start_phases``, resumed from a checkpoint."""
+    got = chip_smoke.matrix_case(torch, cuda, case)
+    planar = select_step_iq(chip_smoke.matrix_config(case))[1]
+    assert got["tail"] == ("planar" if planar else "complex")
+    assert got["launches"] == {"ldpc_parity": case["steps"],
+                               "ifft_gi": case["steps"] * planar}
+    assert got["snr"] > 120

@@ -1,14 +1,16 @@
 """The port's heterogeneous multi-mux on a pool of CPU slots: the cases of
 tests/test_multimux.py, each channel bit-identical to its standalone port
 ``ShardedTransmitter``, plus the refusal of a checkpoint whose channels
-are not the transmitter's."""
+are not the transmitter's (missing, extra, or saved in another order), a
+refused checkpoint changing nothing, and checkpoints moving both ways
+with the JAX ``MultiMuxTransmitter`` through ``.npz`` files."""
 import numpy as np
 import pytest
 import torch
 
 from dvbt2ll_tpu_torch import (MultiMuxTransmitter, MuxChannel,
-                               ShardedTransmitter, make_mesh, synthetic_ts,
-                               vv009_config)
+                               ShardedTransmitter, make_mesh, named_config,
+                               synthetic_ts, vv009_config)
 from dvbt2ll_tpu_torch.dryrun import phase_invariant_config
 from tests.test_torch_multiplp import _mixed_plp_cfg
 
@@ -132,8 +134,9 @@ def test_checkpoint_roundtrip(tmp_path):
     mm2.restore(p)
     for a, b in zip(out, mm2(ts2)):
         assert np.array_equal(a, b)
-    assert sorted(mm2.state_dict()) == ["ch0_carries", "ch0_step_no",
-                                        "ch1_carries", "ch1_step_no"]
+    assert sorted(mm2.state_dict()) == ["ch0_carries", "ch0_cfg",
+                                        "ch0_step_no", "ch1_carries",
+                                        "ch1_cfg", "ch1_step_no"]
 
 
 def test_checkpoint_with_other_channels_is_refused():
@@ -152,3 +155,111 @@ def test_checkpoint_with_other_channels_is_refused():
     before = two.state_dict()
     two.load_state(before)  # its own checkpoint loads
     assert sorted(two.state_dict()) == sorted(before)
+
+
+def _named_pair(names):
+    """vv009_4kshort and t2lite_4k channels, one frame a shard in drift
+    mode: their carries are (1, 1, 187) alike, so only ``ch{i}_cfg`` tells
+    the channels apart."""
+    drift = dict(frames_per_shard=1, strict=False, allow_phase_drift=True)
+    return MultiMuxTransmitter([MuxChannel(named_config(n), **drift)
+                                for n in names], devices=CPU[:4])
+
+
+def _stepped_pair(names, seed):
+    mm = _named_pair(names)
+    mm.step_device([synthetic_ts(n, seed=seed + i)[None]
+                    for i, n in enumerate(mm.bytes_per_step)])
+    return mm
+
+
+def _same_state(a: dict, b: dict) -> None:
+    assert sorted(a) == sorted(b)
+    for k in a:
+        np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]),
+                                      err_msg=k)
+
+
+_PAIR = ["vv009_4kshort", "t2lite_4k"]
+
+
+def test_reordered_checkpoint_is_refused():
+    """A checkpoint of [vv009_4kshort, t2lite_4k] loaded into a
+    transmitter of [t2lite_4k, vv009_4kshort]: every key and shape fits,
+    but channel 0's ``cfg`` is another config's, so it is refused and
+    nothing is loaded; the same channels in their own order load."""
+    saved = _stepped_pair(_PAIR, seed=100).state_dict()
+    other = _named_pair(_PAIR[::-1])
+    before = other.state_dict()
+    with pytest.raises(ValueError, match="channel 0: checkpoint of another "
+                                         "config"):
+        other.load_state(saved)
+    _same_state(other.state_dict(), before)
+    same = _named_pair(_PAIR)
+    same.load_state(saved)
+    _same_state(same.state_dict(), saved)
+
+
+@pytest.mark.parametrize("key,bad", [
+    ("ch1_carries", np.zeros((2, 1, 187), np.uint8)),
+    ("ch1_step_no", np.float32(1.5)),
+    ("ch1_cfg", vv009_config().to_json()),
+], ids=["carries", "step_no", "cfg"])
+def test_refused_checkpoint_changes_nothing(key, bad):
+    """A checkpoint whose second channel is refused leaves the first
+    channel, and every other part of ``state_dict()``, as it was."""
+    mm = _stepped_pair(_PAIR, seed=110)
+    before = mm.state_dict()
+    ckpt = dict(_stepped_pair(_PAIR, seed=120).state_dict(), **{key: bad})
+    assert not np.array_equal(ckpt["ch0_carries"], before["ch0_carries"])
+    with pytest.raises(ValueError, match="channel 1"):
+        mm.load_state(ckpt)
+    _same_state(mm.state_dict(), before)
+
+
+def _jax_pair(names):
+    import jax
+
+    from dvbt2ll_tpu.config import T2Config as JaxT2Config
+    from dvbt2ll_tpu.parallel import MultiMuxTransmitter as JaxMultiMux
+    from dvbt2ll_tpu.parallel import MuxChannel as JaxMuxChannel
+    drift = dict(frames_per_shard=1, strict=False, allow_phase_drift=True)
+    return JaxMultiMux([JaxMuxChannel(JaxT2Config.from_json(
+        named_config(n).to_json()), **drift) for n in names],
+        devices=jax.devices("cpu")[:4])
+
+
+def test_jax_checkpoint_without_cfg_loads(tmp_path):
+    """The JAX package writes no ``ch{i}_cfg``: its checkpoint, through a
+    ``.npz``, still loads, and the port then steps on as the transmitter
+    that made the state."""
+    port = _stepped_pair(_PAIR, seed=130)
+    jx = _jax_pair(_PAIR)
+    jx.load_state({k: v for k, v in port.state_dict().items()
+                   if not k.endswith("_cfg")})
+    p = str(tmp_path / "jax.npz")
+    jx.save(p)
+    with np.load(p) as z:
+        assert not any(k.endswith("_cfg") for k in z.files)
+    resumed = _named_pair(_PAIR)
+    resumed.restore(p)
+    ts = [synthetic_ts(n, seed=140 + i)[None]
+          for i, n in enumerate(port.bytes_per_step)]
+    for a, b in zip(port(ts), resumed(ts)):
+        assert np.array_equal(a, b)
+
+
+def test_port_checkpoint_restores_into_jax(tmp_path):
+    """A port checkpoint, ``ch{i}_cfg`` included, restores into the JAX
+    ``MultiMuxTransmitter`` through a ``.npz``: it reads the carries and
+    step counts and ignores the config."""
+    port = _stepped_pair(_PAIR, seed=150)
+    p = str(tmp_path / "port.npz")
+    port.save(p)
+    with np.load(p) as z:
+        assert {"ch0_cfg", "ch1_cfg"} <= set(z.files)
+    jx = _jax_pair(_PAIR)
+    jx.restore(p)
+    want = {k: v for k, v in port.state_dict().items()
+            if not k.endswith("_cfg")}
+    _same_state(jx.state_dict(), want)

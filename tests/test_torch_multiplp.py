@@ -15,6 +15,7 @@ from dvbt2ll_tpu_torch import (Transmitter, min_batch_frames, named_config,
 from dvbt2ll_tpu_torch.config import (CodeRate, Constellation, FFTSize,
                                       FrameSize, GuardInterval, PilotPattern,
                                       PLPConfig, Rotation, T2Config)
+from tests.torch_compare import snr_db
 
 
 @pytest.fixture(autouse=True)
@@ -23,14 +24,6 @@ def _two_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(prev)
-
-
-def _snr_db(ref, x):
-    ref = np.asarray(ref, np.complex128).ravel()
-    x = np.asarray(x, np.complex128).ravel()
-    err = np.sum(np.abs(x - ref) ** 2)
-    return np.inf if err == 0 else 10 * np.log10(np.sum(np.abs(ref) ** 2)
-                                                 / err)
 
 
 def _mixed_plp_cfg():
@@ -99,10 +92,10 @@ def test_multi_plp_matches_jax_and_oracle(which):
     got = tx(streams)
     jtx = JaxTransmitter(cfg, 1, strict=False, use_pallas=False)
     assert jtx.bytes_per_step_per_plp == tx.bytes_per_step_per_plp
-    snr = _snr_db(jtx(streams), got)
+    snr = snr_db(jtx(streams), got)
     assert snr > 120, f"vs JAX {snr:.1f} dB"
     ref = refmodel.transmit_chain(cfg, streams, 1).reshape(got.shape)
-    snr = _snr_db(ref, got)
+    snr = snr_db(ref, got)
     assert snr > 100, f"vs oracle {snr:.1f} dB"
 
 
@@ -124,7 +117,7 @@ def test_fef_insertion_through_stream():
     want = JaxTransmitter(cfg, 2, strict=False, use_pallas=False).stream(
         streams)
     assert want.shape == out.shape
-    assert _snr_db(want, out) > 120
+    assert snr_db(want, out) > 120
 
 
 def test_stream_window_matches_stream():

@@ -4,7 +4,8 @@ tests/test_sharding.py, bit-identical to the port's sequential
 change bits with the batch, so both sides run the same batch), plus
 ``halo_windows`` against the JAX one, blocks on their slot's device, the
 JAX ``ShardedTransmitter`` above 120 dB with checkpoints moving both
-ways, the symbol-sharded back-end, and the refusals."""
+ways (as dicts and through ``.npz`` files), the symbol-sharded back-end,
+and the refusals, a checkpoint of another config among them."""
 import dataclasses
 import os
 
@@ -22,6 +23,7 @@ from dvbt2ll_tpu_torch import (ShardedTransmitter, Transmitter, build_plan,
                                synthetic_ts, transmit_step_iq, vv009_config)
 from dvbt2ll_tpu_torch.dryrun import phase_invariant_config
 from tests.test_torch_multiplp import _mixed_plp_cfg
+from tests.torch_compare import snr_db
 
 
 @pytest.fixture(autouse=True)
@@ -30,14 +32,6 @@ def _two_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(prev)
-
-
-def _snr_db(ref, x):
-    ref = np.asarray(ref, np.complex128).ravel()
-    x = np.asarray(x, np.complex128).ravel()
-    err = np.sum(np.abs(x - ref) ** 2)
-    return np.inf if err == 0 else 10 * np.log10(np.sum(np.abs(ref) ** 2)
-                                                 / err)
 
 
 def _drift(cfg, mesh, n_mux=1):
@@ -235,10 +229,11 @@ def test_matches_the_jax_sharded_transmitter():
                 for s in (60, 70))
     want, got = jx(ts1), port(ts1)
     assert got.shape == want.shape and got.dtype == np.complex64
-    snr = _snr_db(want, got)
+    snr = snr_db(want, got)
     assert snr > 120, f"{snr:.1f} dB"
     s_jax, s_port = jx.state_dict(), port.state_dict()
-    assert set(s_jax) == set(s_port)
+    assert set(s_port) == set(s_jax) | {"cfg"}   # the JAX side has no cfg
+    assert s_port["cfg"] == cfg.to_json()
     np.testing.assert_array_equal(s_port["carries"], s_jax["carries"])
     assert s_port["step_no"] == s_jax["step_no"] == 1
 
@@ -267,6 +262,57 @@ def test_refusals():
     with pytest.raises(ValueError, match="carries"):
         single.load_state({"carries": np.zeros((2, 1, 187), np.uint8),
                            "step_no": 0})
+
+
+def test_checkpoint_of_another_config_is_refused(tmp_path):
+    """``cfg`` names the config a checkpoint was made with: another
+    config's is refused (naming the fields that differ) and changes
+    nothing, through a dict and through a ``.npz``; without ``cfg`` (the
+    JAX package's checkpoints) the carries' shape and the step count are
+    checked."""
+    mesh = make_mesh(["cpu"], mux=1)
+    vv = _drift(vv009_config(), mesh)
+    lite = _drift(named_config("t2lite_4k"), mesh)
+    vv(synthetic_ts(vv.bytes_per_step_per_mux, seed=4)[None])
+    before = lite.state_dict()
+    with pytest.raises(ValueError, match=r"another config.*'preamble'"):
+        lite.load_state(vv.state_dict())
+    p = str(tmp_path / "vv.npz")
+    vv.save(p)
+    with pytest.raises(ValueError, match="another config"):
+        lite.restore(p)
+    after = lite.state_dict()
+    np.testing.assert_array_equal(after["carries"], before["carries"])
+    assert (after["step_no"], after["cfg"]) == (before["step_no"],
+                                                before["cfg"])
+    lite.load_state({k: v for k, v in vv.state_dict().items() if k != "cfg"})
+    np.testing.assert_array_equal(lite.state_dict()["carries"],
+                                  vv.state_dict()["carries"])
+    with pytest.raises(ValueError, match="step_no"):
+        lite.load_state({"carries": before["carries"], "step_no": 1.5})
+
+
+def test_checkpoints_move_both_ways_through_npz(tmp_path):
+    """The port's ``.npz`` (with ``cfg``) restores into the JAX
+    ``ShardedTransmitter``, and the JAX one's (without) into the port."""
+    cfg = vv009_config()
+    port = _drift(cfg, make_mesh(["cpu"] * 2, mux=1))
+    port(synthetic_ts(port.bytes_per_step_per_mux, seed=6)[None])
+    jx = JaxSharded(cfg, jax_make_mesh(jax.devices("cpu")[:2], mux=1),
+                    n_mux=1, frames_per_shard=1, allow_phase_drift=True,
+                    strict=False)
+    p_port, p_jax = str(tmp_path / "port.npz"), str(tmp_path / "jax.npz")
+    port.save(p_port)
+    jx.restore(p_port)
+    np.testing.assert_array_equal(jx.state_dict()["carries"],
+                                  port.state_dict()["carries"])
+    assert jx.state_dict()["step_no"] == 1
+    jx.save(p_jax)
+    back = _drift(cfg, make_mesh(["cpu"] * 2, mux=1))
+    back.restore(p_jax)
+    np.testing.assert_array_equal(back.state_dict()["carries"],
+                                  port.state_dict()["carries"])
+    assert back.state_dict()["step_no"] == 1
 
 
 def test_make_mesh():

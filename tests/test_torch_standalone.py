@@ -4,8 +4,6 @@ native libraries inside its own tree, and its copy of the host planner
 
 Run alone: ``python -m pytest tests/test_torch_standalone.py -q``.
 """
-import dataclasses
-import enum
 import functools
 import importlib.util
 import os
@@ -13,13 +11,13 @@ import shutil
 import subprocess
 import sys
 
-import numpy as np
 import pytest
 
 from dvbt2ll_tpu import config as jax_config
 from dvbt2ll_tpu.plan import build_plan as jax_build_plan
 from dvbt2ll_tpu_torch import config
 from dvbt2ll_tpu_torch.plan import build_plan, min_batch_frames
+from tests.torch_compare import properties, same
 
 _ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
@@ -87,37 +85,6 @@ def test_port_loads_nothing_of_the_jax_package():
     assert said["built_in_port"] == "True", said
 
 
-def _same(a, b, where: str) -> None:
-    """a (the port's) equals b (the JAX package's): arrays by dtype,
-    shape and value; enums by name and value; dataclasses and plain
-    objects field by field."""
-    if isinstance(a, np.ndarray):
-        assert isinstance(b, np.ndarray), where
-        assert a.dtype == b.dtype and a.shape == b.shape, where
-        np.testing.assert_array_equal(a, b, err_msg=where)
-    elif isinstance(a, enum.Enum):
-        assert (type(a).__name__, a.name, a.value) == (
-            type(b).__name__, b.name, b.value), where
-    elif dataclasses.is_dataclass(a):
-        assert type(a).__name__ == type(b).__name__, where
-        for f in dataclasses.fields(a):
-            _same(getattr(a, f.name), getattr(b, f.name),
-                  f"{where}.{f.name}")
-    elif isinstance(a, (list, tuple)):
-        assert type(a) is type(b) and len(a) == len(b), where
-        for i, (x, y) in enumerate(zip(a, b)):
-            _same(x, y, f"{where}[{i}]")
-    elif isinstance(a, dict):
-        assert a.keys() == b.keys(), where
-        for k in a:
-            _same(a[k], b[k], f"{where}[{k!r}]")
-    elif hasattr(a, "__dict__"):
-        assert type(a).__name__ == type(b).__name__, where
-        _same(vars(a), vars(b), where)
-    else:
-        assert type(a) is type(b) and a == b, (where, a, b)
-
-
 @functools.lru_cache(maxsize=1)
 def _bench():
     """``bench.py``, the JAX package's named-config registry."""
@@ -128,12 +95,6 @@ def _bench():
     return mod
 
 
-def _properties(cls) -> list:
-    return sorted(n for n in dir(cls) if not n.startswith("_")
-                  and isinstance(getattr(cls, n),
-                                 (property, functools.cached_property)))
-
-
 @pytest.mark.parametrize("name", config.NAMED_CONFIGS)
 def test_plan_equals_the_jax_packages(name):
     """The port's config (fields and every derived property) and its
@@ -141,15 +102,15 @@ def test_plan_equals_the_jax_packages(name):
     the JAX package's, field for field."""
     ours = config.named_config(name)
     theirs = _bench()._named_config(name)
-    _same(ours, theirs, name)
-    props = _properties(config.T2Config)
-    assert props == _properties(jax_config.T2Config)
+    same(ours, theirs, name)
+    props = properties(config.T2Config)
+    assert props == properties(jax_config.T2Config)
     for p in props:
-        _same(getattr(ours, p), getattr(theirs, p), f"{name}.{p}")
+        same(getattr(ours, p), getattr(theirs, p), f"{name}.{p}")
     batch = (min_batch_frames(ours)
              if ours.input_mode == config.InputMode.HIEFF else 2)
-    _same(build_plan(ours, batch, strict=False),
-          jax_build_plan(theirs, batch, strict=False), f"{name} plan")
+    same(build_plan(ours, batch, strict=False),
+         jax_build_plan(theirs, batch, strict=False), f"{name} plan")
 
 
 _INVALID = [dict(sub_slices=2), dict(fef_length=1000, fef_interval=1)]
