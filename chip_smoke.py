@@ -68,13 +68,26 @@ imports no JAX.  Phases, each of which raises on failure:
    ``dryrun_multichip``, ``dryrun_multihost`` as two processes sharing
    the card, and the multi-mux app as a subprocess with two ``--config``
    files; (e) with two or more cards, (a) over the real cards with no
-   peer-to-peer copy in a profiled step, else a line saying why not.
+   peer-to-peer copy in a profiled step, else a line saying why not;
+10. the measuring entry points, each a subprocess on the card whose
+   output starts with the card line, each JSON line printed:
+   ``tools.roofline`` at batch 256 on vv009, 8k_normal and 32k_extended
+   (its tail kernel bound equal to phase 3's; arithmetic on the host, so
+   it runs beside the next two), ``bench`` at vv009 batch 256 for 10
+   steps, ``tools.bench_latency`` on its four configs,
+   ``tools.bench_sustained`` ``device`` and ``full`` for 5 s each and
+   ``paced`` for about 10 s of air (no sync errors, the paced lag at most
+   one step, the sink's warm-up and timed samples exact), and
+   ``tools.bench_scaling`` parts A and B, with part C when the phase so
+   far took less than 90 s.  Each tool counts its kernel launches in its
+   own process and reports them.
 
 The kernel launch counts are set to 0 just before each path of phases
 4b-9 and read just after.  Prints the kernel table as one JSON line, then,
 as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero,
 without that line, when there is no CUDA device or any phase fails.
 """
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -219,8 +232,11 @@ SHARD_MUX = 8          # BASELINE.json config 5: 8+ independent channels
 SHARD_FRAME = 2
 SHARD_STEPS = 2
 SYMBOL_SLOTS = 4
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
-FP32_FLOP_PER_S = 67e12     # float32 outside the tensor cores, the same
+TOOL_TIMEOUT = 300     # seconds for each measuring tool's subprocess
+BENCH_STEPS = 10       # phase 10: bench at vv009 batch 256
+SUSTAINED_SECONDS = 5.0   # phase 10: bench_sustained device and full
+TOOLS_C_BUDGET = 90.0  # phase 10 runs bench_scaling part C when the
+                       # phase's earlier tools took less, in seconds
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -237,14 +253,15 @@ def snr_db(ref, x) -> float:
         10 * np.log10(np.sum(np.abs(ref) ** 2) / err))
 
 
-def bound(nbytes: float, flops: float) -> tuple:
-    """(ms, what sets it): the larger of the bytes over the memory rate
-    and the float32 operations over the float32 rate, both the published
-    H100 SXM peaks."""
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / FP32_FLOP_PER_S * 1e3
-    return ((by_bytes, "bytes") if by_bytes >= by_ops
-            else (by_ops, "operations"))
+def tail_bound(re, im, p1, tables, out, fft: int) -> tuple:
+    """The fused tail kernel's bound on these tensors (``roofline.bound``):
+    the grids, P1 and both tables read once, the I/Q written once; 5 N
+    log2 N float32 operations a symbol."""
+    from dvbt2ll_tpu_torch.tools.roofline import bound
+    b, s = re.shape[:2]
+    nbytes = sum(t.numel() * 4 for t in (re, im, p1, tables.w128,
+                                         tables.twiddle, out))
+    return bound(nbytes, 5.0 * b * s * fft * np.log2(fft))
 
 
 def ldpc_phase(torch, dev, rng) -> dict:
@@ -257,6 +274,7 @@ def ldpc_phase(torch, dev, rng) -> dict:
                                             ldpc_schedule)
     from dvbt2ll_tpu_torch.profile_step import cuda_ms
     from dvbt2ll_tpu_torch.tables.ldpc import encode_ref, qc_entries
+    from dvbt2ll_tpu_torch.tools.roofline import bound
     times = {}
     for name, frames in LDPC_CASES:
         cfg = named_config(name)
@@ -331,11 +349,7 @@ def tail_phase(torch, dev, rng) -> dict:
                                                        scale, tables))
             natural = torch.complex(re, im).reshape(b * s, fft)
             library_ms = cuda_ms(lambda: torch.fft.ifft(natural, dim=-1))
-            # the grids, P1 and both tables read once, the I/Q written
-            # once; 5 N log2 N float32 operations a symbol
-            nbytes = sum(t.numel() * 4 for t in (re, im, p1, tables.w128,
-                                                 tables.twiddle, got))
-            bound_ms, by = bound(nbytes, 5.0 * b * s * fft * np.log2(fft))
+            bound_ms, by = tail_bound(re, im, p1, tables, got, fft)
             times[timed] = dict(err=err, ms=ms, plain_ms=plain_ms,
                                 bound_ms=bound_ms, bound_by=by,
                                 library_ms=library_ms)
@@ -379,10 +393,8 @@ def reset_launches() -> None:
 
 
 def launches() -> dict:
-    from dvbt2ll_tpu_torch.ops.ifft import ifft_gi
-    from dvbt2ll_tpu_torch.ops.ldpc import ldpc_codeword
-    return {"ldpc_parity": ldpc_codeword.launches,
-            "ifft_gi": ifft_gi.launches}
+    from dvbt2ll_tpu_torch.tools import kernel_launches
+    return kernel_launches()
 
 
 def full_width_phase(torch, dev, name: str, steps: int) -> dict:
@@ -1168,6 +1180,133 @@ def multi_device_phase(torch, dev, tmp: str) -> dict:
     return paths
 
 
+def run_tool(args: list, card: str) -> list:
+    """``python -m <args>`` from this checkout: exit code 0 and the card
+    line first; prints and returns its JSON lines."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", *map(str, args)], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=TOOL_TIMEOUT)
+    dt = time.perf_counter() - t0
+    name = args[0].rsplit(".", 1)[-1]
+    require(res.returncode == 0, f"{name}: rc {res.returncode}\n"
+            f"{res.stdout}\n{res.stderr}")
+    lines = res.stdout.splitlines()
+    require(lines and lines[0] == card,
+            f"{name}: first line {lines[:1]}, not the card line")
+    out = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    for o in out:
+        print(f"{name} ({' '.join(map(str, args[1:]))}; subprocess "
+              f"{dt:.1f} s): {json.dumps(o)}")
+    return out
+
+
+def bench_and_latency(card: str) -> dict:
+    """Phase 10's ``bench`` at vv009 batch 256 and ``bench_latency`` on
+    its four configs; their kernel launches by path."""
+    from dvbt2ll_tpu_torch import named_config
+    from dvbt2ll_tpu_torch.tools.bench_latency import CONFIGS
+    (b,) = run_tool(["dvbt2ll_tpu_torch.bench", BATCH, BENCH_STEPS,
+                     "vv009_4kshort"], card)
+    require({"metric", "value", "unit", "vs_baseline"} <= b.keys()
+            and b["device"] == card and b["value"] > 0
+            and b["step_device_msamples_s"] > 0, f"bench: {b}")
+    require(b["launches"] == {"ldpc_parity": BENCH_STEPS,
+                              "ifft_gi": BENCH_STEPS},
+            f"bench: launches {b['launches']}")
+
+    lats = run_tool(["dvbt2ll_tpu_torch.tools.bench_latency"], card)
+    require([r["config"] for r in lats] == list(CONFIGS),
+            f"bench_latency: {[r['config'] for r in lats]}")
+    total = {"ldpc_parity": 0, "ifft_gi": 0}
+    for r in lats:
+        cfg = named_config(r["config"])
+        calls = r["iters"] + r["calls"]
+        planar = r["launches"]["ifft_gi"] == calls
+        require(r["frame_duration_s"] == cfg.frame_duration
+                and 0 < r["per_call_ms_median"] <= r["per_call_ms_max"]
+                and r["launches"]["ldpc_parity"]
+                == calls * len(cfg.plp_configs)
+                and (planar or r["launches"]["ifft_gi"] == 0),
+                f"bench_latency {r['config']}: {r}")
+        total = {k: total[k] + r["launches"][k] for k in total}
+    return {"tool_bench": b["launches"], "tool_latency": total}
+
+
+def tools_phase(tail_times: dict) -> dict:
+    """Phase 10: the measuring entry points, each a subprocess on the
+    card, briefly; their kernel launches by path."""
+    from dvbt2ll_tpu_torch import min_batch_frames, named_config
+    from dvbt2ll_tpu_torch.profile_step import card_line
+    card = card_line()
+    t_start = time.perf_counter()
+    paths = {}
+    # the roofline is arithmetic on the host: it runs beside the next two
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        roofs = pool.submit(run_tool, [
+            "dvbt2ll_tpu_torch.tools.roofline", BATCH, "vv009_4kshort",
+            "8k_normal", "32k_extended"], card)
+        paths.update(bench_and_latency(card))
+        roofs = roofs.result()
+    for r in roofs:
+        parts = {p["name"]: p for p in r["parts"]}
+        if r["config"] in tail_times:
+            got = parts["tail_kernel"]["bound_ms"]
+            want = tail_times[r["config"]]["bound_ms"]
+            require(abs(got - want) <= 1e-12 * want, f"roofline "
+                    f"{r['config']}: tail bound {got} ms, phase 3 {want} ms")
+        else:
+            require({"fft_gi", "p1_iq"} <= parts.keys(),
+                    f"roofline {r['config']}: parts {sorted(parts)}")
+
+    cfg = named_config("vv009_4kshort")
+    step_samples = min_batch_frames(cfg) * cfg.samples_per_frame
+    for r in run_tool(["dvbt2ll_tpu_torch.tools.bench_sustained",
+                       "device,full,paced", f"{SUSTAINED_SECONDS},"
+                       f"{SUSTAINED_SECONDS},{PACED_SECONDS}"], card):
+        role = r["role"]
+        require(r["steps"] > 0 and r["sync_errors"] == 0
+                and r["ingest"]["sync_errors"] == 0
+                and r["ingest"]["null_stuffed"] == 0,
+                f"bench_sustained {role}: {r}")
+        require(r["launches"] == {"ldpc_parity": r["steps"],
+                                  "ifft_gi": r["steps"]},
+                f"bench_sustained {role}: launches {r['launches']} in "
+                f"{r['steps']} steps")
+        if role != "device":
+            sunk = r["sink_samples"]
+            require(sunk["warmup"] == step_samples
+                    and sunk["timed"] == r["steps"] * step_samples
+                    and sunk["warmup"] + sunk["timed"] == r["sink_written"],
+                    f"bench_sustained {role}: sink {sunk}, wrote "
+                    f"{r['sink_written']}, {r['steps']} steps")
+        if role == "paced":
+            require(r["paced_ok"] and r["sink_file_samples"]
+                    == r["sink_written"], f"bench_sustained paced: {r}")
+        paths[f"tool_sustained_{role}"] = r["launches"]
+
+    parts = ("ABC" if time.perf_counter() - t_start < TOOLS_C_BUDGET
+             else "AB")
+    (s,) = run_tool(["dvbt2ll_tpu_torch.tools.bench_scaling", "--parts",
+                     parts], card)
+    require(s["copy_audit"]["peer_copies"] == 0,
+            f"bench_scaling: copy audit {s['copy_audit']}")
+    total = {"ldpc_parity": 0, "ifft_gi": 0}
+    for row in s["strong"]:
+        n = row["slots"] * s["steps"]
+        require(row["launches"] == {"ldpc_parity": n, "ifft_gi": n},
+                f"bench_scaling: {row}")
+        total = {k: total[k] + row["launches"][k] for k in total}
+    paths["tool_scaling_strong"] = total
+    if "C" not in parts:
+        print(f"bench_scaling part C: not run, the phase's tools took over "
+              f"{TOOLS_C_BUDGET:.0f} s")
+    print(f"phase 10: the measuring entry points passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1215,6 +1354,7 @@ def main() -> int:
         stream_rate=mplp_rate)
     with tempfile.TemporaryDirectory() as tmp:
         paths.update(multi_device_phase(torch, dev, tmp))
+    paths.update(tools_phase(tail_times))
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in paths.items()}

@@ -1,0 +1,125 @@
+"""Throughput of the transmit chain on one CUDA card: the twin of the JAX
+package's ``bench.py``.
+
+    python -m dvbt2ll_tpu_torch.bench [batch] [steps] [config] [--device cuda|cpu]
+
+Defaults: 256 frames a step, 50 steps, vv009_4kshort (configs by
+``config.named_config``).  Four rotating pre-carried TS windows, one per
+PLP a step, each starting with the previous window's last 187 bytes
+(``staged_windows``), are put on the device first.  The step function
+runs on them: two warm-up calls, then ``steps`` calls fenced by
+``torch.cuda.synchronize()``; no output is kept, so the caching allocator
+reuses one step's memory for the next.  Every step is its own phase-0
+stream (``allow_phase_drift``): a throughput measurement, not one valid
+continuous stream.
+
+Prints the card's name and power limit, then one JSON line with
+``bench.py``'s ``metric``, ``value`` (Msamples/s), ``unit`` and
+``vs_baseline`` (the real-time factor against the reference app's
+8e6 * 8 / 7 samples/s), plus ``device`` (the card line),
+``step_device_msamples_s`` (the same windows' fresh bytes through
+``Transmitter.step_device``, host staging and host-to-device copy
+included, fenced the same way), ``ms_per_step`` and the kernel launches
+of the timed loop.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from .config import named_config
+from .io import synthetic_ts
+from .pipeline import Transmitter
+from .tools import device_line, kernel_launches, launches_since, open_device
+from .tools import sync
+
+BASELINE_SAMP_RATE = 8e6 * 8 / 7   # the reference app's samp_rate
+WINDOWS = 4
+
+
+def staged_windows(tx: Transmitter, device) -> tuple:
+    """``WINDOWS`` steps of TS, as ``bench.py`` makes them: step s, PLP i
+    is ``synthetic_ts(n_i, seed=16 s + i)`` behind the previous window's
+    last 187 bytes (zeros before the first).  Returns (windows on
+    ``device``, fresh host bytes), each a step's array, or its list of
+    per-PLP arrays for a multi-PLP config."""
+    per_plp = tx.bytes_per_step_per_plp
+    carries = [np.zeros(187, np.uint8) for _ in per_plp]
+    windows, fresh = [], []
+    for s in range(WINDOWS):
+        step_w, step_f = [], []
+        for i, n in enumerate(per_plp):
+            ts = synthetic_ts(n, seed=16 * s + i)
+            padded = np.concatenate([carries[i], ts])
+            carries[i] = padded[-187:]
+            step_w.append(torch.from_numpy(padded).to(device))
+            step_f.append(ts)
+        windows.append(step_w if len(step_w) > 1 else step_w[0])
+        fresh.append(step_f if len(step_f) > 1 else step_f[0])
+    return windows, fresh
+
+
+def run(batch: int, steps: int, name: str, device) -> dict:
+    """The staged loop and the ``step_device`` loop on ``device``; the
+    JSON line's fields."""
+    cfg = named_config(name)
+    tx = Transmitter(cfg, batch, strict=False, allow_phase_drift=True,
+                     device=device)
+    windows, fresh = staged_windows(tx, device)
+    step = tx._step_fn
+    step(tx.tensors, windows[0], 0)   # warm-up: allocations, cuFFT plans
+    step(tx.tensors, windows[1], 0)
+    sync(device)
+    before = kernel_launches()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        step(tx.tensors, windows[i % WINDOWS], 0)
+    sync(device)
+    dt = time.perf_counter() - t0
+    launches = launches_since(before)
+
+    tx.step_device(fresh[0])
+    sync(device)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        tx.step_device(fresh[i % WINDOWS])
+    sync(device)
+    dt_host = time.perf_counter() - t0
+
+    samples = steps * batch * cfg.samples_per_frame
+    rate = samples / dt
+    return {
+        "metric": f"{name}_throughput",
+        "value": round(rate / 1e6, 1),
+        "unit": "Msamples/s/chip",
+        "vs_baseline": round(rate / BASELINE_SAMP_RATE, 1),
+        "device": device_line(device),
+        "batch": batch, "steps": steps,
+        "ms_per_step": dt / steps * 1e3,
+        "step_device_msamples_s": samples / dt_host / 1e6,
+        "step_device_ms_per_step": dt_host / steps * 1e3,
+        "launches": launches,
+    }
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("batch", nargs="?", type=int, default=256)
+    ap.add_argument("steps", nargs="?", type=int, default=50)
+    ap.add_argument("config", nargs="?", default="vv009_4kshort")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; a missing CUDA "
+                         "device is an error)")
+    args = ap.parse_args(argv)
+    device = open_device(args.device)
+    print(device_line(device), flush=True)
+    print(json.dumps(run(args.batch, args.steps, args.config, device)),
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -15,11 +15,14 @@ port), each running only its half of the global mesh: a vv009 drift step
 and two strict steps of a phase-invariant HIEFF config.  The steps call
 no collective; rank 0 gathers the blocks afterwards and asserts them
 bit-identical to the single-process run.  Every worker has a time limit.
+``run_workers`` and ``process_group`` are the worker machinery, shared
+with ``tools/bench_scaling.py``.
 A missing CUDA device is an error, never a CPU run.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
 import os
 import socket
@@ -131,21 +134,16 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def dryrun_multihost(device="cuda", slots: int = SLOTS_PER_PROC,
-                     timeout: float = WORKER_TIMEOUT) -> str:
-    """Ground truth in this process over N_PROCS * ``slots`` slots, then
-    N_PROCS worker processes of ``slots`` slots each on one global mesh.
-    Returns rank 0's verdict line; raises when a worker fails, times out
-    or its blocks differ."""
+def run_workers(args: list, timeout: float, what: str) -> list:
+    """N_PROCS processes ``python -m <args> --rank r --port p``, r = 0 ..
+    N_PROCS - 1, with a free localhost port for their rendezvous
+    (``process_group``).  Returns each rank's output; raises when a
+    worker fails or the workers run over ``timeout`` seconds in all, and
+    leaves no worker running."""
+    port = _free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
     with tempfile.TemporaryDirectory() as tmp:
-        truth = os.path.join(tmp, "single.npz")
-        outs = _cases(make_mesh([device] * (N_PROCS * slots), mux=N_MUX))
-        np.savez(truth, **{name: np.stack([
-            np.stack([o.cpu().numpy() for o in row]) for row in blocks])
-            for name, blocks in outs.items()})
-        port = _free_port()
-        env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=os.pathsep.join(
-            p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
         # each worker's output goes to a file: a pipe nobody reads while
         # the other worker is waited on could fill and stall both
         logs = [os.path.join(tmp, f"rank{r}.log") for r in range(N_PROCS)]
@@ -154,17 +152,15 @@ def dryrun_multihost(device="cuda", slots: int = SLOTS_PER_PROC,
             for r, log in enumerate(logs):
                 with open(log, "w") as f:
                     procs.append(subprocess.Popen(
-                        [sys.executable, "-m", "dvbt2ll_tpu_torch.dryrun",
-                         "worker", "--device", str(device), "--slots",
-                         str(slots), "--rank", str(r), "--port", str(port),
-                         "--truth", truth],
+                        [sys.executable, "-m", *map(str, args), "--rank",
+                         str(r), "--port", str(port)],
                         cwd=ROOT, env=env, stdout=f,
                         stderr=subprocess.STDOUT))
             deadline = time.monotonic() + timeout
             for p in procs:
                 p.wait(timeout=max(1.0, deadline - time.monotonic()))
         except subprocess.TimeoutExpired:
-            raise RuntimeError(f"multihost dryrun: a worker ran over "
+            raise RuntimeError(f"{what}: a worker ran over "
                                f"{timeout:.0f} s") from None
         finally:
             for p in procs:
@@ -177,8 +173,41 @@ def dryrun_multihost(device="cuda", slots: int = SLOTS_PER_PROC,
                 said.append(f.read())
     rcs = [p.returncode for p in procs]
     if any(rcs):
-        raise RuntimeError(f"multihost dryrun FAILED, rcs={rcs}\n" + "\n".join(
+        raise RuntimeError(f"{what} FAILED, rcs={rcs}\n" + "\n".join(
             f"rank {r}:\n{out}" for r, out in enumerate(said)))
+    return said
+
+
+@contextlib.contextmanager
+def process_group(rank: int, port: int):
+    """This worker's membership of the N_PROCS-process gloo group that
+    ``run_workers`` started, for the block."""
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=N_PROCS,
+        rank=rank, timeout=datetime.timedelta(seconds=WORKER_TIMEOUT))
+    try:
+        yield dist
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_multihost(device="cuda", slots: int = SLOTS_PER_PROC,
+                     timeout: float = WORKER_TIMEOUT) -> str:
+    """Ground truth in this process over N_PROCS * ``slots`` slots, then
+    N_PROCS worker processes of ``slots`` slots each on one global mesh.
+    Returns rank 0's verdict line; raises when a worker fails, times out
+    or its blocks differ."""
+    with tempfile.TemporaryDirectory() as tmp:
+        truth = os.path.join(tmp, "single.npz")
+        outs = _cases(make_mesh([device] * (N_PROCS * slots), mux=N_MUX))
+        np.savez(truth, **{name: np.stack([
+            np.stack([o.cpu().numpy() for o in row]) for row in blocks])
+            for name, blocks in outs.items()})
+        said = run_workers(
+            ["dvbt2ll_tpu_torch.dryrun", "worker", "--device", device,
+             "--slots", slots, "--truth", truth], timeout, "multihost dryrun")
     verdict = [ln for ln in said[0].splitlines() if "BIT-IDENTICAL" in ln]
     if not verdict:
         raise RuntimeError(f"multihost dryrun: rank 0 gave no verdict\n"
@@ -187,12 +216,7 @@ def dryrun_multihost(device="cuda", slots: int = SLOTS_PER_PROC,
 
 
 def _worker(device, slots: int, rank: int, port: int, truth: str) -> None:
-    import torch.distributed as dist
-
-    dist.init_process_group(
-        "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=N_PROCS,
-        rank=rank, timeout=datetime.timedelta(seconds=WORKER_TIMEOUT))
-    try:
+    with process_group(rank, port) as dist:
         mesh = make_mesh([device] * slots, mux=N_MUX)
         if mesh.world != N_PROCS:
             raise RuntimeError(f"mesh over {mesh.world} processes")
@@ -241,8 +265,6 @@ def _worker(device, slots: int, rank: int, port: int, truth: str) -> None:
                   f"single-process ({sorted(outs)}; mesh {mesh.shape}, "
                   f"{slots} slots of {device} a process; incl. the strict "
                   f"phase-invariant 2-step valid-stream mode)", flush=True)
-    finally:
-        dist.destroy_process_group()
 
 
 def main(argv=None) -> None:

@@ -101,6 +101,12 @@ class NativeIQSink:
             raise OSError("iq_sink write error")
 
     @property
+    def samples_flushed(self) -> int:
+        """Samples the writer thread has written to the descriptor (all of
+        ``samples_written`` after ``flush``)."""
+        return int(self._lib.iq_sink_floats_written(self._h)) // 2
+
+    @property
     def producer_stalls(self) -> int:
         return int(self._lib.iq_sink_stalls(self._h))
 

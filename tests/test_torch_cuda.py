@@ -340,6 +340,41 @@ def test_symbol_sharded_on_card(cuda):
         plan_tensors(plan, cuda, False), padded, 0))
 
 
+def test_bench_on_card(cuda):
+    """The port's bench at a small size: the staged loop launches both
+    kernels once a step, and both rates are positive."""
+    from dvbt2ll_tpu_torch import bench
+    from dvbt2ll_tpu_torch.profile_step import card_line
+    r = bench.run(8, 3, "vv009_4kshort", cuda)
+    assert r["device"] == card_line()
+    assert r["value"] > 0 and r["step_device_msamples_s"] > 0
+    assert r["launches"] == {"ldpc_parity": 3, "ifft_gi": 3}
+
+
+def test_bench_latency_on_card(cuda):
+    from dvbt2ll_tpu_torch.tools import bench_latency
+    r = bench_latency.measure("vv009_4kshort", cuda, iters=3, calls=4)
+    assert 0 < r["per_call_ms_median"] <= r["per_call_ms_max"]
+    assert r["frame_latency_ms"] > 0
+    assert r["launches"] == {"ldpc_parity": 7, "ifft_gi": 7}
+
+
+def test_roofline_tail_bound_under_the_kernel_time(cuda):
+    """The roofline's tail bound at vv009 batch 256 against the kernel's
+    time on the card: the kernel takes at least the bound (share of bound
+    at most 1.05, room for the timing's noise)."""
+    from dvbt2ll_tpu_torch.profile_step import cuda_ms
+    from dvbt2ll_tpu_torch.tools import roofline
+    b, s, fft, gi = 256, 7, 4096, 128
+    r = roofline.roofline("vv009_4kshort", b)
+    bound_ms = {p["name"]: p for p in r["parts"]}["tail_kernel"]["bound_ms"]
+    re, im, _ = _grids(cuda, fft // 128, b, s)
+    p1 = torch.zeros((ifft.P1_LEN, 2), device=cuda)
+    tables = ifft.tail_tables(fft, 1.0 / 64, cuda)
+    ms = cuda_ms(lambda: ifft.ifft_gi(re, im, p1, fft, gi, 1.0 / 64, tables))
+    assert bound_ms / ms <= 1.05, (bound_ms, ms)
+
+
 @pytest.mark.parametrize("case", chip_smoke.MATRIX,
                          ids=[c["id"] for c in chip_smoke.MATRIX])
 def test_config_matrix_on_card_matches_cpu(cuda, case):
