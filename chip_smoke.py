@@ -69,6 +69,19 @@ imports no JAX.  Phases, each of which raises on failure:
    the card, and the multi-mux app as a subprocess with two ``--config``
    files; (e) with two or more cards, (a) over the real cards with no
    peer-to-peer copy in a profiled step, else a line saying why not;
+9b. the compiled step (``compiled.CompiledStep``, a CUDA graph a
+   transmitter, the counterpart of the JAX step's ``jax.jit``; every
+   phase above already runs through it): on vv009 at batch 256 and at its
+   47-frame strict batch (odd: the frame index alternates), 8k_normal and
+   32k_extended at 256 and multiplp_fef strict at 282, four steps, every
+   output kept, each bit-identical to the eager step function on the same
+   window and frame index; then ``step_device`` compiled against the
+   eager step's host path, each timed, with the capture's time, the
+   graph's pool and the peak memory each reserved, and on the card's
+   clock a replay, the eager step and the output's copy; batch-1 latency
+   compiled and eager (``bench_latency.measure``); and BASELINE config 5
+   (8 vv009 muxes over 16 compiled slots) block by block against the
+   eager step, with both aggregate rates;
 10. the measuring entry points, each a subprocess on the card whose
    output starts with the card line, each JSON line printed:
    ``tools.roofline`` at batch 256 on vv009, 8k_normal and 32k_extended
@@ -79,11 +92,14 @@ imports no JAX.  Phases, each of which raises on failure:
    ``paced`` for about 10 s of air (no sync errors, the paced lag at most
    one step, the sink's warm-up and timed samples exact), and
    ``tools.bench_scaling`` parts A and B, with part C when the phase so
-   far took less than 90 s.  Each tool counts its kernel launches in its
-   own process and reports them.
+   far took less than 90 s; then part A's 4- and 8-slot steps again in
+   this process under torch.profiler (wall time, the card's kernel time,
+   the host's graph launches).  Each tool counts its kernel launches in
+   its own process and reports them; a replayed graph counts as the
+   launches its capture recorded.
 
 The kernel launch counts are set to 0 just before each path of phases
-4b-9 and read just after.  Prints the kernel table as one JSON line, then,
+4b-9b and read just after.  Prints the kernel table as one JSON line, then,
 as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero,
 without that line, when there is no CUDA device or any phase fails.
 """
@@ -237,6 +253,17 @@ BENCH_STEPS = 10       # phase 10: bench at vv009 batch 256
 SUSTAINED_SECONDS = 5.0   # phase 10: bench_sustained device and full
 TOOLS_C_BUDGET = 90.0  # phase 10 runs bench_scaling part C when the
                        # phase's earlier tools took less, in seconds
+# phase 9b: (config, batch or None for 3 x its smallest streamable batch,
+# strict) of each full-width path, compiled against eager; vv009 strict at
+# 47 frames is the odd batch, where the frame index alternates
+COMPILED_PATHS = (("vv009_4kshort", BATCH, False), ("vv009_4kshort", 47, True),
+                  ("8k_normal", BATCH, False), ("32k_extended", BATCH, False),
+                  ("multiplp_fef", None, True))
+COMPILED_CHECK = 4     # steps held bit for bit: t2_frames + 2
+COMPILED_STEPS = 10    # timed steps, compiled and eager
+LATENCY_ITERS = 20     # phase 9b's batch-1 latency, back to back
+LATENCY_CALLS = 50     # and fenced alone
+TRACE_STEPS = 5        # phase 10's profiled 4- and 8-slot steps
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -386,10 +413,9 @@ def golden_phase(torch, dev) -> None:
 
 
 def reset_launches() -> None:
-    from dvbt2ll_tpu_torch.ops.ifft import ifft_gi
-    from dvbt2ll_tpu_torch.ops.ldpc import ldpc_codeword
-    ldpc_codeword.launches = 0
-    ifft_gi.launches = 0
+    from dvbt2ll_tpu_torch.ops import kernel_wrappers
+    for f in kernel_wrappers().values():
+        f.launches = 0
 
 
 def launches() -> dict:
@@ -1180,6 +1206,234 @@ def multi_device_phase(torch, dev, tmp: str) -> dict:
     return paths
 
 
+def _one(x):
+    return x if len(x) > 1 else x[0]
+
+
+def _mb(nbytes: int) -> float:
+    return nbytes / 2 ** 20
+
+
+def compiled_path(torch, dev, name: str, batch, strict: bool) -> dict:
+    """One full-width path through the compiled step: COMPILED_CHECK
+    steps, every output kept until the end, each bit-identical to the
+    eager step function on the same window and frame index; then
+    COMPILED_STEPS steps of ``step_device`` on the host clock, fenced,
+    beside the eager step's host path (``bench.eager_step_device``), each
+    after a warm-up step and with its peak reserved memory; the capture's
+    time and pool."""
+    from dvbt2ll_tpu_torch import (Transmitter, min_batch_frames,
+                                   named_config, synthetic_ts)
+    from dvbt2ll_tpu_torch.bench import eager_step_device
+    from dvbt2ll_tpu_torch.pipeline import select_step_iq
+    from dvbt2ll_tpu_torch.profile_step import cuda_ms
+    cfg = named_config(name)
+    b = batch or 3 * min_batch_frames(cfg)
+    kw = (dict(strict=True) if strict
+          else dict(strict=False, allow_phase_drift=True))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    r0 = torch.cuda.memory_reserved(dev)
+    tx = Transmitter(cfg, b, device=dev, **kw)
+    ns = tx.bytes_per_step_per_plp
+    total = COMPILED_CHECK + 2 * (1 + COMPILED_STEPS)
+    data = [synthetic_ts(total * n, seed=SEED + 1000 + i)
+            for i, n in enumerate(ns)]
+    fresh = [[d[k * n:(k + 1) * n] for d, n in zip(data, ns)]
+             for k in range(total)]
+    label = f"compiled {name} batch {b}"
+
+    carries = [np.zeros(187, np.uint8) for _ in ns]
+    kept = []
+    for k in range(COMPILED_CHECK):
+        ws = [np.concatenate([c, f]) for c, f in zip(carries, fresh[k])]
+        carries = [w[-187:] for w in ws]
+        kept.append((ws, tx._frame_idx, tx.step_window(_one(ws))))
+    for k, (ws, idx, got) in enumerate(kept):
+        want = tx._step_fn(tx.tensors, _one(
+            [torch.from_numpy(w).to(dev) for w in ws]), idx)
+        require(torch.equal(got, want), f"{label}: step {k} (frame index "
+                f"{idx}) differs from the eager step")
+    indices = [idx for _, idx, _ in kept]
+    del kept
+
+    def timed(step, first: int) -> tuple:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        step(_one(fresh[first]))   # warm-up: the caching allocator's blocks
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        for k in range(first + 1, first + 1 + COMPILED_STEPS):
+            step(_one(fresh[k]))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return (dt / COMPILED_STEPS * 1e3, launches(),
+                torch.cuda.max_memory_reserved(dev) - r0)
+
+    ms, counts, peak = timed(tx.step_device, COMPILED_CHECK)
+    eager_ms, _, eager_peak = timed(eager_step_device(tx),
+                                    COMPILED_CHECK + 1 + COMPILED_STEPS)
+    step = tx._compiled
+    planar = select_step_iq(cfg)[1]
+    want = {"ldpc_parity": COMPILED_STEPS * len(ns),
+            "ifft_gi": COMPILED_STEPS * planar}
+    require(counts == want, f"{label}: launches {counts} under replay, "
+            f"expected {want}")
+    # the card's time: a replay, the eager step on the same static inputs,
+    # and the copy that hands each step's output to the caller
+    replay_ms = cuda_ms(step._graph.replay)
+    eager_dev_ms = cuda_ms(lambda: tx._step_fn(
+        tx.tensors, _one(step.windows), step.frame_idx))
+    copy_ms = cuda_ms(step._out.clone)
+    print(f"{label}: {COMPILED_CHECK} steps (frame indices {indices}) "
+          f"bit-identical to the eager step; device {replay_ms:.4f} ms a "
+          f"replay, {eager_dev_ms:.4f} eager, output copy {copy_ms:.4f} "
+          f"ms; step_device {ms:.4f} ms a "
+          f"step compiled, {eager_ms:.4f} eager ({eager_ms / ms:.2f}x); "
+          f"capture {step.capture_s * 1e3:.1f} ms, graph pool "
+          f"{_mb(step.pool_bytes):.1f} MiB; peak reserved {_mb(peak):.1f} "
+          f"MiB compiled (pool included), "
+          f"{_mb(eager_peak - step.pool_bytes):.1f} MiB eager (pool left "
+          f"out); launches {counts}")
+    return dict(ms=ms, eager_ms=eager_ms, capture_s=step.capture_s,
+                pool=step.pool_bytes, launches=counts, copy_ms=copy_ms)
+
+
+def compiled_sharded(torch, dev) -> dict:
+    """BASELINE config 5 through compiled slots: vv009 as SHARD_MUX muxes,
+    strict at 47 frames a block, over a (SHARD_MUX, SHARD_FRAME) mesh of
+    16 slots of the card, t2_frames + 1 steps, every block bit-identical
+    to the eager step on its halo window and frame index; then the
+    aggregate rate of the compiled step beside the eager blocks'."""
+    from dvbt2ll_tpu_torch import (ShardedTransmitter, make_mesh,
+                                   min_batch_frames, synthetic_ts,
+                                   vv009_config)
+    from dvbt2ll_tpu_torch.parallel import halo_windows
+    cfg = vv009_config()
+    b = min_batch_frames(cfg)
+    stx = ShardedTransmitter(cfg, make_mesh([dev] * (SHARD_MUX * SHARD_FRAME),
+                                            mux=SHARD_MUX),
+                             n_mux=SHARD_MUX, frames_per_shard=b)
+    n = stx.bytes_per_step_per_mux
+    total = cfg.t2_frames + 1 + 2 * (1 + SHARD_STEPS)
+    ts = [np.stack([synthetic_ts(n, seed=SEED + 1100 + 16 * k + c)
+                    for c in range(SHARD_MUX)]) for k in range(total)]
+    carries = np.zeros((SHARD_MUX, 187), np.uint8)
+    for k in range(cfg.t2_frames + 1):
+        windows = halo_windows(ts[k], carries, SHARD_FRAME)
+        carries = ts[k][:, -187:]
+        base = (k % cfg.t2_frames) * stx.frames_per_step
+        out = stx.step_device(ts[k])
+        for c in range(SHARD_MUX):
+            for s in range(SHARD_FRAME):
+                d = stx.mesh.devices[c, s]
+                want = stx._step_fn(stx.tensors[d], torch.from_numpy(
+                    windows[c, s]).to(d), (base + s * b) % cfg.t2_frames)
+                require(torch.equal(out[c][s], want), f"compiled sharded: "
+                        f"step {k} block ({c}, {s}) differs from the eager "
+                        f"step")
+
+    def eager_step(step_ts):
+        nonlocal carries
+        windows = halo_windows(step_ts, carries, SHARD_FRAME)
+        carries = step_ts[:, -187:]
+        staged = [(stx.mesh.devices[c, s],
+                   torch.tensor(windows[c, s], device=stx.mesh.devices[c, s]))
+                  for c in range(SHARD_MUX) for s in range(SHARD_FRAME)]
+        return [stx._step_fn(stx.tensors[d], w, 0) for d, w in staged]
+
+    def timed(step, first: int) -> tuple:
+        step(ts[first])
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        for k in range(first + 1, first + 1 + SHARD_STEPS):
+            step(ts[k])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / SHARD_STEPS * 1e3, launches()
+
+    first = cfg.t2_frames + 1
+    ms, counts = timed(stx.step_device, first)
+    eager_ms, _ = timed(eager_step, first + 1 + SHARD_STEPS)
+    blocks = SHARD_MUX * SHARD_FRAME
+    require(counts == {"ldpc_parity": blocks * SHARD_STEPS,
+                       "ifft_gi": blocks * SHARD_STEPS},
+            f"compiled sharded: launches {counts}")
+    samples = SHARD_MUX * stx.frames_per_step * cfg.samples_per_frame
+    steps = stx._steps.values()
+    capture_s = sum(st.capture_s for st in steps)
+    pool = sum(st.pool_bytes for st in steps)
+    print(f"compiled sharded: vv009 x {SHARD_MUX} muxes over {blocks} slots "
+          f"of {dev}, {b} frames a block, {cfg.t2_frames + 1} steps "
+          f"bit-identical to the eager step block by block; a step "
+          f"{ms:.4f} ms compiled = {samples / ms / 1e3:.2f} Msamples/s, "
+          f"{eager_ms:.4f} ms eager = {samples / eager_ms / 1e3:.2f} "
+          f"Msamples/s (host staging included); {blocks} captures "
+          f"{capture_s * 1e3:.1f} ms, pools {_mb(pool):.1f} MiB; launches "
+          f"{counts}")
+    return counts
+
+
+def compiled_phase(torch, dev) -> dict:
+    """Phase 9b: the compiled step against the eager one on every
+    full-width path (``compiled_path``), batch-1 latency compiled and
+    eager (``bench_latency.measure``), and the 16-slot multi-mux
+    (``compiled_sharded``).  Returns the launches by path."""
+    from dvbt2ll_tpu_torch.tools.bench_latency import CONFIGS, measure
+    t_start = time.perf_counter()
+    paths = {}
+    for name, batch, strict in COMPILED_PATHS:
+        r = compiled_path(torch, dev, name, batch, strict)
+        paths[f"compiled_{name}_{batch or 'strict'}"] = r["launches"]
+        torch.cuda.empty_cache()
+    for name in CONFIGS:
+        r = measure(name, dev, iters=LATENCY_ITERS, calls=LATENCY_CALLS)
+        print(f"compiled latency {name} batch 1: per call median "
+              f"{r['per_call_ms_median']:.4f} ms (max "
+              f"{r['per_call_ms_max']:.4f}), back to back "
+              f"{r['frame_latency_ms']:.4f}; eager median "
+              f"{r['eager_per_call_ms_median']:.4f} ms (max "
+              f"{r['eager_per_call_ms_max']:.4f}), back to back "
+              f"{r['eager_frame_latency_ms']:.4f}; capture "
+              f"{r['capture_s'] * 1e3:.1f} ms")
+    paths["compiled_sharded_16"] = compiled_sharded(torch, dev)
+    print(f"phase 9b: the compiled step passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
+    return paths
+
+
+def slot_trace(torch, dev) -> None:
+    """``bench_scaling`` part A's 4- and 8-slot steps again, in this
+    process, under torch.profiler: wall time a step beside the card's
+    kernel time and the host's graph launches, to say whether the host or
+    the card sets the step's time."""
+    from torch.profiler import ProfilerActivity, profile
+    from dvbt2ll_tpu_torch.tools.bench_scaling import TOTAL_FRAMES, _sharded
+    for n in (4, 8):
+        _, stx, ts = _sharded([dev] * n, TOTAL_FRAMES)
+        stx.step_device(ts)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(TRACE_STEPS):
+                stx.step_device(ts)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / TRACE_STEPS * 1e3
+        events = prof.key_averages()
+        device_ms = sum(e.self_device_time_total
+                        for e in events) / TRACE_STEPS / 1e3
+        launch_ms = sum(e.cpu_time_total for e in events
+                        if e.key == "cudaGraphLaunch") / TRACE_STEPS / 1e3
+        require(device_ms > 0, f"slot trace {n}: no device time recorded")
+        print(f"slot trace, {n} slots of {dev} ({TOTAL_FRAMES} frames, "
+              f"profiled): {wall:.4f} ms a step, device {device_ms:.4f} ms "
+              f"(busy {device_ms / wall:.3f}), cudaGraphLaunch on the host "
+              f"{launch_ms:.4f} ms")
+
+
 def run_tool(args: list, card: str) -> list:
     """``python -m <args>`` from this checkout: exit code 0 and the card
     line first; prints and returns its JSON lines."""
@@ -1234,9 +1488,9 @@ def bench_and_latency(card: str) -> dict:
     return {"tool_bench": b["launches"], "tool_latency": total}
 
 
-def tools_phase(tail_times: dict) -> dict:
+def tools_phase(torch, tail_times: dict) -> dict:
     """Phase 10: the measuring entry points, each a subprocess on the
-    card, briefly; their kernel launches by path."""
+    card, briefly, then ``slot_trace``; their kernel launches by path."""
     from dvbt2ll_tpu_torch import min_batch_frames, named_config
     from dvbt2ll_tpu_torch.profile_step import card_line
     card = card_line()
@@ -1299,6 +1553,11 @@ def tools_phase(tail_times: dict) -> dict:
                 f"bench_scaling: {row}")
         total = {k: total[k] + row["launches"][k] for k in total}
     paths["tool_scaling_strong"] = total
+    wall = {row["slots"]: row["wall_ms_per_step"] for row in s["strong"]}
+    print(f"bench_scaling part A: {wall[4]:.4f} ms at 4 slots, "
+          f"{wall[8]:.4f} at 8: "
+          f"{'4 slots slower than 8' if wall[4] > wall[8] else 'in order'}")
+    slot_trace(torch, torch.device("cuda"))
     if "C" not in parts:
         print(f"bench_scaling part C: not run, the phase's tools took over "
               f"{TOOLS_C_BUDGET:.0f} s")
@@ -1354,7 +1613,8 @@ def main() -> int:
         stream_rate=mplp_rate)
     with tempfile.TemporaryDirectory() as tmp:
         paths.update(multi_device_phase(torch, dev, tmp))
-    paths.update(tools_phase(tail_times))
+    paths.update(compiled_phase(torch, dev))
+    paths.update(tools_phase(torch, tail_times))
 
     def by_path(kernel):
         return {p: c[kernel] for p, c in paths.items()}

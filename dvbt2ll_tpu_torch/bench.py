@@ -6,21 +6,26 @@ package's ``bench.py``.
 Defaults: 256 frames a step, 50 steps, vv009_4kshort (configs by
 ``config.named_config``).  Four rotating pre-carried TS windows, one per
 PLP a step, each starting with the previous window's last 187 bytes
-(``staged_windows``), are put on the device first.  The step function
-runs on them: two warm-up calls, then ``steps`` calls fenced by
-``torch.cuda.synchronize()``; no output is kept, so the caching allocator
-reuses one step's memory for the next.  Every step is its own phase-0
-stream (``allow_phase_drift``): a throughput measurement, not one valid
+(``staged_windows``), are put on the device first.  The transmitter's
+compiled step (``compiled.CompiledStep``, as ``bench.py`` times the JAX
+``tx._step``) runs on them: two warm-up calls, then ``steps`` calls
+fenced by ``torch.cuda.synchronize()``; no output is kept, so the caching
+allocator reuses one step's memory for the next.  Then the eager step
+function the same way.  Every step is its own phase-0 stream
+(``allow_phase_drift``): a throughput measurement, not one valid
 continuous stream.
 
 Prints the card's name and power limit, then one JSON line with
-``bench.py``'s ``metric``, ``value`` (Msamples/s), ``unit`` and
-``vs_baseline`` (the real-time factor against the reference app's
-8e6 * 8 / 7 samples/s), plus ``device`` (the card line),
-``step_device_msamples_s`` (the same windows' fresh bytes through
-``Transmitter.step_device``, host staging and host-to-device copy
-included, fenced the same way), ``ms_per_step`` and the kernel launches
-of the timed loop.
+``bench.py``'s ``metric``, ``value`` (Msamples/s of the compiled step),
+``unit`` and ``vs_baseline`` (the real-time factor against the reference
+app's 8e6 * 8 / 7 samples/s), plus ``device`` (the card line),
+``ms_per_step``, ``step_device_msamples_s`` and ``step_device_ms_per_step``
+(the same windows' fresh bytes through ``Transmitter.step_device``, host
+staging and host-to-device copy included, fenced the same way), the
+kernel launches of the timed compiled loop, the capture's time and pool
+memory, and under ``eager_`` names the same readings of the eager step
+(``eager_step_device_*``: ``step_device``'s host work before the compiled
+step, a pageable window copy and the eager step function).
 """
 from __future__ import annotations
 
@@ -63,32 +68,55 @@ def staged_windows(tx: Transmitter, device) -> tuple:
     return windows, fresh
 
 
-def run(batch: int, steps: int, name: str, device) -> dict:
-    """The staged loop and the ``step_device`` loop on ``device``; the
-    JSON line's fields."""
-    cfg = named_config(name)
-    tx = Transmitter(cfg, batch, strict=False, allow_phase_drift=True,
-                     device=device)
-    windows, fresh = staged_windows(tx, device)
-    step = tx._step_fn
-    step(tx.tensors, windows[0], 0)   # warm-up: allocations, cuFFT plans
-    step(tx.tensors, windows[1], 0)
+def _timed(step, windows, steps: int, device) -> tuple:
+    """Seconds for ``steps`` calls of ``step(window)`` over the rotating
+    ``windows``, after two warm-up calls, fenced; and their launches."""
+    step(windows[0])
+    step(windows[1])
     sync(device)
     before = kernel_launches()
     t0 = time.perf_counter()
     for i in range(steps):
-        step(tx.tensors, windows[i % WINDOWS], 0)
+        step(windows[i % WINDOWS])
     sync(device)
-    dt = time.perf_counter() - t0
-    launches = launches_since(before)
+    return time.perf_counter() - t0, launches_since(before)
 
-    tx.step_device(fresh[0])
-    sync(device)
-    t0 = time.perf_counter()
-    for i in range(steps):
-        tx.step_device(fresh[i % WINDOWS])
-    sync(device)
-    dt_host = time.perf_counter() - t0
+
+def _as_list(w) -> list:
+    return w if isinstance(w, list) else [w]
+
+
+def eager_step_device(tx: Transmitter):
+    """``step_device``'s host work as it was before the compiled step, on
+    the eager step function: the carry and the fresh bytes concatenated,
+    a pageable copy to the device, the step (frame index 0, drift mode).
+    Returns ``step(fresh)``."""
+    carries = [np.zeros(187, np.uint8) for _ in tx.plan.plps]
+
+    def step(fresh):
+        ws = []
+        for i, ts in enumerate(_as_list(fresh)):
+            w = np.concatenate([carries[i], ts])
+            carries[i] = w[-187:]
+            ws.append(torch.tensor(w, device=tx.device))
+        return tx._step_fn(tx.tensors, ws if len(ws) > 1 else ws[0], 0)
+
+    return step
+
+
+def run(batch: int, steps: int, name: str, device) -> dict:
+    """The staged loop and the ``step_device`` loop on ``device``, the
+    compiled step and then the eager one; the JSON line's fields."""
+    cfg = named_config(name)
+    tx = Transmitter(cfg, batch, strict=False, allow_phase_drift=True,
+                     device=device)
+    windows, fresh = staged_windows(tx, device)
+    dt, launches = _timed(lambda w: tx._compiled(_as_list(w), 0), windows,
+                          steps, device)
+    dt_eager, _ = _timed(lambda w: tx._step_fn(tx.tensors, w, 0), windows,
+                         steps, device)
+    dt_host, _ = _timed(tx.step_device, fresh, steps, device)
+    dt_host_eager, _ = _timed(eager_step_device(tx), fresh, steps, device)
 
     samples = steps * batch * cfg.samples_per_frame
     rate = samples / dt
@@ -103,6 +131,12 @@ def run(batch: int, steps: int, name: str, device) -> dict:
         "step_device_msamples_s": samples / dt_host / 1e6,
         "step_device_ms_per_step": dt_host / steps * 1e3,
         "launches": launches,
+        "capture_s": tx._compiled.capture_s,
+        "pool_bytes": tx._compiled.pool_bytes,
+        "eager_msamples_s": samples / dt_eager / 1e6,
+        "eager_ms_per_step": dt_eager / steps * 1e3,
+        "eager_step_device_msamples_s": samples / dt_host_eager / 1e6,
+        "eager_step_device_ms_per_step": dt_host_eager / steps * 1e3,
     }
 
 

@@ -66,11 +66,14 @@ class ComplexTail:
 
 @dataclasses.dataclass
 class PlanTensors:
-    """A plan's device constants: per PLP, and those of one OFDM tail."""
+    """A plan's device constants: per PLP, those of one OFDM tail, and the
+    step's frame offsets, to which the frame builder adds the step's first
+    T2 frame index (an int, or a 0-d int64 tensor on the device)."""
 
     plan: object                    # host TransmitPlan
     plps: list                      # [PlpTensors]
     tail: object                    # PlanarTail or ComplexTail
+    frame_offsets: torch.Tensor     # (B,) i64, 0 .. batch_frames - 1
 
 
 def _t(a, dtype, device) -> torch.Tensor:
@@ -162,4 +165,6 @@ def plan_tensors(plan, device, planar: bool) -> PlanTensors:
         plan=plan,
         plps=[_plp_tensors(pp, device) for pp in plan.plps],
         tail=(_planar_tail if planar else _complex_tail)(plan, device),
+        frame_offsets=torch.arange(plan.batch_frames, dtype=torch.int64,
+                                   device=device),
     )

@@ -51,6 +51,8 @@
 
 #include <cuda_runtime.h>
 
+#include "per_device.cuh"
+
 namespace {
 
 constexpr int kN1 = 128;
@@ -326,27 +328,40 @@ ofdm_tail_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
   }
 }
 
+// What a launch of one tile shape needs of its device: the SM count and
+// the blocks resident on one SM.
+struct Residency {
+  int sms;
+  int per_sm;
+};
+
 template <int N2>
 int launch(const float* ar, const float* ai, const float2* p1,
            const float2* w128, const float2* tw, float2* out, int frames,
-           int spf, int gi_rows, cudaStream_t stream) {
+           int spf, int gi_rows, int device, cudaStream_t stream) {
   using T = Tile<N2>;
   const auto kernel = ofdm_tail_kernel<N2>;
-  // above 48 KB the launch is refused without this
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+  static dvbt2ll::PerDevice<Residency> residency;
+  Residency r{};
+  const cudaError_t err = residency.get(device, &r, [kernel](int dev,
+                                                            Residency* v) {
+    // above 48 KB the launch is refused without this
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+    if (e == cudaSuccess) {
+      e = cudaDeviceGetAttribute(&v->sms, cudaDevAttrMultiProcessorCount,
+                                 dev);
+    }
+    if (e == cudaSuccess) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &v->per_sm, kernel, T::kThreads, T::kSmemBytes);
+    }
+    return e;
+  });
   if (err != cudaSuccess) return static_cast<int>(err);
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, T::kThreads, T::kSmemBytes)) != cudaSuccess) {
-    return static_cast<int>(err);
-  }
   const long long tiles =
       (static_cast<long long>(frames) * spf + T::kSymbols - 1) / T::kSymbols;
-  const long long resident = static_cast<long long>(sms) * per_sm;
+  const long long resident = static_cast<long long>(r.sms) * r.per_sm;
   const int grid = static_cast<int>(
       tiles < resident ? (tiles > 0 ? tiles : 1) : resident);
   kernel<<<grid, T::kThreads, T::kSmemBytes, stream>>>(
@@ -360,11 +375,12 @@ int launch(const float* ar, const float* ai, const float2* p1,
 // = w_128^k, tw (n2 * 128, 2) = scale * w_N^k, all float32; out (frames,
 // 2048 + spf * (n2 + gi_rows) * 128, 2) float32.  All contiguous and
 // 16-byte aligned; n2 is 8, 16, 32 or 64 and 0 <= gi_rows <= n2.
-// Returns cudaGetLastError() after the launch.
+// `device` is the current device, which `stream` belongs to.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int dvbt2ll_ofdm_tail(const void* ar, const void* ai,
                                  const void* p1, const void* w128,
                                  const void* tw, void* out, int frames,
-                                 int spf, int n2, int gi_rows,
+                                 int spf, int n2, int gi_rows, int device,
                                  void* stream) {
   if (frames <= 0 || spf <= 0 || gi_rows < 0 || gi_rows > n2) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -376,16 +392,16 @@ extern "C" int dvbt2ll_ofdm_tail(const void* ar, const void* ai,
   switch (n2) {
     case 8:
       return launch<8>(f(ar), f(ai), c(p1), c(w128), c(tw), o, frames, spf,
-                       gi_rows, s);
+                       gi_rows, device, s);
     case 16:
       return launch<16>(f(ar), f(ai), c(p1), c(w128), c(tw), o, frames, spf,
-                        gi_rows, s);
+                        gi_rows, device, s);
     case 32:
       return launch<32>(f(ar), f(ai), c(p1), c(w128), c(tw), o, frames, spf,
-                        gi_rows, s);
+                        gi_rows, device, s);
     case 64:
       return launch<64>(f(ar), f(ai), c(p1), c(w128), c(tw), o, frames, spf,
-                        gi_rows, s);
+                        gi_rows, device, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -48,6 +48,8 @@
 
 #include <cuda_runtime.h>
 
+#include "per_device.cuh"
+
 namespace {
 
 constexpr int kRows = 360;
@@ -218,17 +220,31 @@ ldpc_codeword_kernel(const uint8_t* __restrict__ bits,
 template <int kThreads>
 int launch(const void* bits, void* out, const void* col_ptr, const void* grp,
            const void* shift, int frames, int nbch, int q, int entries,
-           cudaStream_t stream) {
+           int device, cudaStream_t stream) {
   const auto kernel = ldpc_codeword_kernel<kThreads>;
   constexpr int kChunks = kThreads / 4 / kWalkers;
   const int smem = kRows * q + 4 * (nbch / kRows * (kGroupBytes / 4) +
                                     q * kWalkers + kChunks * kWalkers +
                                     kWalkers + q + 1 + entries);
-  // above 48 KB the launch is refused without this: up to about 53 KB
-  // (normal frames at rate 1/3)
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // above 48 KB a launch is refused unless the kernel's limit is raised:
+  // once a device, to all that a block may have (a table needs up to
+  // about 53 KB: normal frames at rate 1/3)
+  static dvbt2ll::PerDevice<int> max_smem;
+  int limit = 0;
+  const cudaError_t err = max_smem.get(device, &limit, [kernel](int dev,
+                                                                int* lim) {
+    int optin = 0;
+    cudaFuncAttributes attr;
+    cudaError_t e = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+    if (e != cudaSuccess) return e;
+    *lim = optin - static_cast<int>(attr.sharedSizeBytes);
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *lim);
+  });
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > limit) return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<frames, kThreads, smem, stream>>>(
       static_cast<const uint8_t*>(bits), static_cast<uint8_t*>(out),
       static_cast<const int32_t*>(col_ptr), static_cast<const int32_t*>(grp),
@@ -240,31 +256,32 @@ int launch(const void* bits, void* out, const void* col_ptr, const void* grp,
 
 // bits (frames, nbch) and out (frames, nbch + 360 * q), both uint8 and
 // contiguous, 8-byte aligned, nbch a multiple of 360; the schedule holds
-// `entries` entries.  Returns cudaGetLastError() after the launch.
+// `entries` entries.  `device` is the current device, which `stream`
+// belongs to.  Returns cudaGetLastError() after the launch.
 extern "C" int dvbt2ll_ldpc_codeword(const void* bits, void* out,
                                      const void* col_ptr, const void* grp,
                                      const void* shift, int frames, int nbch,
-                                     int q, int entries, void* stream) {
+                                     int q, int entries, int device,
+                                     void* stream) {
   if (frames <= 0 || nbch <= 0 || nbch % kRows || q <= 0 || entries < 0 ||
       nbch / kRows * kGroupBytes > 0xffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-  }
+  static dvbt2ll::PerDevice<int> sm_count;
+  int sms = 0;
+  const cudaError_t err = sm_count.get(device, &sms, [](int dev, int* n) {
+    return cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
+  });
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // fewer frames than 8 blocks a SM: more threads a frame, for more
   // loads and stores in flight
   if (frames < 8 * sms) {
     return launch<256>(bits, out, col_ptr, grp, shift, frames, nbch, q,
-                       entries, s);
+                       entries, device, s);
   }
   return launch<128>(bits, out, col_ptr, grp, shift, frames, nbch, q,
-                     entries, s);
+                     entries, device, s);
 }
 
 extern "C" const char* dvbt2ll_error_string(int code) {

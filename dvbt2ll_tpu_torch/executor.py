@@ -9,8 +9,12 @@ On a CUDA transmitter each step's output goes to the host by an
 asynchronous copy into pinned memory, on a side stream that waits on an
 event recorded after the step on the compute stream; a second event marks
 the copy done, and draining the step waits on that event alone.  The
-copy overlaps the next step's compute (copy engine and SMs).  A CPU
-transmitter's output is already on the host: its drain is a view.
+copy overlaps the next step's compute (copy engine and SMs).  The step
+is the transmitter's compiled step: its output is a device copy of the
+graph's static output (``compiled.CompiledStep``), which the caching
+allocator owns, so ``record_stream`` protects it as it protects any
+tensor.  A CPU transmitter's output is already on the host: its drain is
+a view.
 
     executor = StreamingExecutor(tx, source=ingest_or_callable, sink=sink)
     executor.run(n_steps)

@@ -1,1 +1,10 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain torch twin."""
+
+
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper, by the kernel's name.  A wrapper's
+    ``launches`` counts its kernel's launches; ``compiled.CompiledStep``
+    adds a captured step's share at every replay."""
+    from .ifft import ifft_gi
+    from .ldpc import ldpc_codeword
+    return {"ldpc_parity": ldpc_codeword, "ifft_gi": ifft_gi}

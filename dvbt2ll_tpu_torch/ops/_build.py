@@ -110,9 +110,9 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built on the first call."""
     lib = ctypes.CDLL(build())
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.dvbt2ll_ldpc_codeword.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+    lib.dvbt2ll_ldpc_codeword.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
     lib.dvbt2ll_ldpc_codeword.restype = i32
-    lib.dvbt2ll_ofdm_tail.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+    lib.dvbt2ll_ofdm_tail.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.dvbt2ll_ofdm_tail.restype = i32
     lib.dvbt2ll_error_string.argtypes = [i32]
     lib.dvbt2ll_error_string.restype = ctypes.c_char_p

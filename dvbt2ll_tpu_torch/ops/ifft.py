@@ -148,8 +148,10 @@ def ifft_gi(grids_re_t: torch.Tensor, grids_im_t: torch.Tensor,
     tail_tables(fft, scale, device)`` (built when None).
 
     A CPU tensor goes through the plain twin.  A CUDA tensor launches
-    the kernel, or raises: there is no fallback.  ``ifft_gi.launches``
-    counts kernel launches."""
+    the kernel, or raises: there is no fallback; while a CUDA graph is
+    captured, ``tables`` must be given.  ``ifft_gi.launches`` counts
+    kernel launches (under a CUDA graph, ``compiled.CompiledStep`` counts
+    the replays' launches)."""
     shape = tuple(grids_re_t.shape)
     n2 = fft // N1
     if (not supported(fft, gi) or gi > fft
@@ -176,6 +178,11 @@ def ifft_gi(grids_re_t: torch.Tensor, grids_im_t: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"no OFDM tail kernel for device {dev}")
     if tables is None:
+        if torch.cuda.is_current_stream_capturing():
+            # the tables' upload is a host-to-device copy, which a CUDA
+            # graph cannot record
+            raise RuntimeError("ifft_gi: pass tables=tail_tables(...) made "
+                               "before a CUDA graph capture")
         tables = tail_tables(fft, scale, dev)
     for t in (tables.w128, tables.twiddle):
         if t.device != dev or t.dtype != torch.float32:
@@ -199,7 +206,8 @@ def ifft_gi(grids_re_t: torch.Tensor, grids_im_t: torch.Tensor,
         code = lib.dvbt2ll_ofdm_tail(
             grids_re_t.data_ptr(), grids_im_t.data_ptr(), p1_iq.data_ptr(),
             tables.w128.data_ptr(), tables.twiddle.data_ptr(),
-            out.data_ptr(), b, s, n2, gi // N1, stream)
+            out.data_ptr(), b, s, n2, gi // N1, torch.cuda.current_device(),
+            stream)
     _build.check(lib, code, "ifft_gi launch")
     ifft_gi.launches += 1
     return out

@@ -94,7 +94,8 @@ def ldpc_codeword(sched: LdpcSchedule,
 
     A CPU tensor goes through the plain twin.  A CUDA tensor launches
     the kernel, or raises: there is no fallback.
-    ``ldpc_codeword.launches`` counts kernel launches."""
+    ``ldpc_codeword.launches`` counts kernel launches (under a CUDA graph,
+    ``compiled.CompiledStep`` counts the replays' launches)."""
     if (nbch_bits.dtype != torch.uint8 or nbch_bits.dim() != 2
             or nbch_bits.shape[1] != sched.nbch):
         raise ValueError(f"expected (F, {sched.nbch}) uint8 bits, got "
@@ -121,7 +122,7 @@ def ldpc_codeword(sched: LdpcSchedule,
         code = lib.dvbt2ll_ldpc_codeword(
             nbch_bits.data_ptr(), out.data_ptr(), sched.col_ptr.data_ptr(),
             sched.grp.data_ptr(), sched.shift.data_ptr(), f, sched.nbch,
-            sched.q, sched.grp.numel(), stream)
+            sched.q, sched.grp.numel(), torch.cuda.current_device(), stream)
     _build.check(lib, code, "ldpc_codeword launch")
     ldpc_codeword.launches += 1
     return out

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..compiled import CompiledStep
 from ..config import T2Config
 from ..convert import plan_tensors
 from ..ops.ifft import set_full_fp32_matmul
@@ -143,8 +144,9 @@ class ShardedTransmitter:
     """N independent DVB-T2 muxes, frames sharded over a device mesh.
 
     Each slot runs the single-chain step (``pipeline.select_step_iq``) on
-    its (mux-slice, frame-slice) block, on its own device; no block's
-    data moves to another device inside the step.
+    its (mux-slice, frame-slice) block, on its own device, as one
+    ``compiled.CompiledStep`` a block (on a CUDA slot a captured graph);
+    no block's data moves to another device inside the step.
     """
 
     def __init__(self, cfg: T2Config, mesh: DeviceMesh, n_mux: int = 1,
@@ -184,6 +186,19 @@ class ShardedTransmitter:
                         for d in mesh.local_devices()}
         self.frame_shards = frame_shards
         self.mux_per_shard = n_mux // mux_shards
+        # one compiled step a block (one mux's share of a slot), on the
+        # slot's device with the block's frame index as its device input:
+        # the counterpart of the JAX package's jax.jit(_shard_map(...)).
+        # A block has its own static inputs, so every block is staged
+        # before any block runs.
+        self._steps = {}
+        for (m, f), dev in np.ndenumerate(mesh.devices):
+            if dev is None:
+                continue  # another process's slot
+            for c in range(m * self.mux_per_shard,
+                           (m + 1) * self.mux_per_shard):
+                self._steps[c, f] = CompiledStep(
+                    self._step_fn, self.tensors[dev], self.plan, dev)
         self.frames_per_step = self.plan.batch_frames * frame_shards
         n_plp = len(self.plan.plps)
         self._carries = np.zeros((n_mux, n_plp, 187), dtype=np.uint8)
@@ -194,11 +209,11 @@ class ShardedTransmitter:
         for a single-PLP chain, or a sequence of such arrays (one per PLP,
         sized n_mux x bytes_per_step_per_mux_per_plp[i]).
 
-        Every block's window is copied to its slot's device, then every
-        block's step is enqueued there, before any result is read; no
-        host sync falls between two blocks' steps.  Returns ``out[c][s]``, for mux c and frame shard s, the f32
-        (B_local, samples, 2) I/Q tensor on that block's device, or None
-        where another process owns the slot."""
+        Every block's window is staged into its compiled step on its
+        slot's device, then every block's step is enqueued there, before
+        any result is read.  Returns ``out[c][s]``, for mux c and frame
+        shard s, the f32 (B_local, samples, 2) I/Q tensor on that block's
+        device, or None where another process owns the slot."""
         cfg = self.cfg
         if (self._step_no and not self._allow_phase_drift
                 and not self._phase_invariant):
@@ -230,22 +245,13 @@ class ShardedTransmitter:
                 ) % cfg.t2_frames
         self._step_no += 1
 
-        # every window goes to its slot's device before any block runs:
-        # the pageable copy waits for the device, so a copy between two
-        # blocks' steps would hold the host until the first had finished
-        staged = {}
-        for (m, f), dev in np.ndenumerate(self.mesh.devices):
-            if dev is None:
-                continue  # another process's slot
-            for c in range(m * self.mux_per_shard,
-                           (m + 1) * self.mux_per_shard):
-                staged[c, f] = dev, [torch.tensor(w[c, f], device=dev)
-                                     for w in windows]
+        # every block is staged before any block runs, so no staging
+        # waits for another block's step
+        for (c, f), step in self._steps.items():
+            step.stage([w[c, f] for w in windows], int(fidx[f]))
         out = [[None] * self.frame_shards for _ in range(self.n_mux)]
-        for (c, f), (dev, ws) in staged.items():
-            out[c][f] = self._step_fn(self.tensors[dev],
-                                      ws if len(ws) > 1 else ws[0],
-                                      int(fidx[f]))
+        for (c, f), step in self._steps.items():
+            out[c][f] = step.replay()
         return out
 
     def _require_whole_mesh(self) -> None:

@@ -9,7 +9,10 @@ the planar one (1K-8K FFTs with a guard interval of whole 128-sample
 rows) and the complex one (``torch.fft``, every other geometry: 16K, 32K
 and odd guard intervals).  On a CUDA tensor the LDPC parity and the
 planar tail run the hand-written kernels of ``ops/ldpc.py`` and
-``ops/ifft.py``; a CPU tensor takes their plain twins.
+``ops/ifft.py``; a CPU tensor takes their plain twins.  ``Transmitter``
+runs its step through ``compiled.CompiledStep``: on a CUDA device a
+captured CUDA graph replayed every step, the counterpart of the JAX
+step's ``jax.jit``.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from ._bits import gf2_matmul, packbits, unpackbits
+from .compiled import CompiledStep
 from .config import T2Config
 from .convert import PlanTensors, PlpTensors, plan_tensors
 from .observability import TxCounters, check_ts_sync
@@ -141,11 +145,22 @@ def _as_windows(plan, ts_padded) -> List[torch.Tensor]:
     return ws
 
 
-def frame_grids(tp: PlanTensors, ts_padded, frame_idx0: int):
+def frame_index(tp: PlanTensors, frame_idx0) -> torch.Tensor:
+    """(B,) int64 T2 frame index of each frame of the step:
+    (frame_idx0 + 0 .. B - 1) mod t2_frames.  ``frame_idx0``, the step's
+    first frame index, is an int or a 0-d int64 tensor on the plan's
+    device; ``compiled.CompiledStep`` passes the tensor, so that a
+    captured step reads the index at every replay (the JAX step's traced
+    ``jnp.int32(frame_idx)``)."""
+    return (frame_idx0 + tp.frame_offsets) % tp.plan.cfg.t2_frames
+
+
+def frame_grids(tp: PlanTensors, ts_padded, frame_idx0):
     """Padded TS windows (one per PLP) -> the frame builder's transposed
     grids (B, S, N2, 128) f32 re/im planes: FEC and mapping per PLP,
     then L1, payload and dummy cells gathered straight into the 4-step
-    IFFT's layout, with pilots and the optional inverse sinc."""
+    IFFT's layout, with pilots and the optional inverse sinc.
+    ``frame_idx0`` as in ``frame_index``."""
     plan = tp.plan
     cfg = plan.cfg
     b = plan.batch_frames
@@ -159,8 +174,7 @@ def frame_grids(tp: PlanTensors, ts_padded, frame_idx0: int):
     pay_re = torch.cat(res, dim=1)
     pay_im = torch.cat(ims, dim=1)
 
-    idx = torch.arange(frame_idx0, frame_idx0 + b,
-                       device=pay_re.device) % cfg.t2_frames
+    idx = frame_index(tp, frame_idx0)
     zeros = pay_re.new_zeros(b, cfg.n_fc - cfg.c_fc + 1)
     seq_re = torch.cat([t.l1pre_re.expand(b, -1), t.l1post_re[idx],
                         pay_re, t.dummy_re.expand(b, -1), zeros], dim=1)
@@ -186,7 +200,7 @@ def ofdm_tail(tp: PlanTensors, g_re: torch.Tensor,
 
 
 def transmit_step_iq_planar(tp: PlanTensors, ts_padded,
-                            frame_idx0: int) -> torch.Tensor:
+                            frame_idx0) -> torch.Tensor:
     """Padded TS windows (one per PLP) -> (B, samples, 2) f32 I/Q.
 
     Cells, frame grids and the OFDM tail stay separate re/im planes.  The
@@ -197,16 +211,16 @@ def transmit_step_iq_planar(tp: PlanTensors, ts_padded,
 
 
 def build_frames(tp: PlanTensors, payload: torch.Tensor,
-                 frame_idx0: int) -> torch.Tensor:
+                 frame_idx0) -> torch.Tensor:
     """Raw mapper cells (B, total_stream) c64 -> OFDM grids (B, S, fft)
     c64: L1, payload and dummy cells, then one gather over the natural
     ``grid_src`` (which composes the cell, time and frequency interleavers
-    and the carrier map), then the pilot plane."""
+    and the carrier map), then the pilot plane.  ``frame_idx0`` as in
+    ``frame_index``."""
     cfg = tp.plan.cfg
     t = tp.tail
     b = payload.shape[0]
-    idx = torch.arange(frame_idx0, frame_idx0 + b,
-                       device=payload.device) % cfg.t2_frames
+    idx = frame_index(tp, frame_idx0)
     # one trailing zero cell absorbs every pilot/null position (-1)
     seq = torch.cat([t.l1pre.expand(b, -1), t.l1post[idx], payload,
                      t.dummy.expand(b, -1),
@@ -247,7 +261,7 @@ def modulate(tp: PlanTensors, grids: torch.Tensor) -> torch.Tensor:
 
 
 def complex_grids(tp: PlanTensors, ts_padded,
-                  frame_idx0: int) -> torch.Tensor:
+                  frame_idx0) -> torch.Tensor:
     """Padded TS windows (one per PLP) -> (B, S, fft) c64 OFDM grids: FEC
     and the mapper per PLP, then the complex frame builder."""
     plan = tp.plan
@@ -260,14 +274,14 @@ def complex_grids(tp: PlanTensors, ts_padded,
 
 
 def transmit_step(tp: PlanTensors, ts_padded,
-                  frame_idx0: int) -> torch.Tensor:
+                  frame_idx0) -> torch.Tensor:
     """Padded TS windows (one per PLP) -> (B, samples) c64: FEC and the
     mapper per PLP, then the complex frame builder and tail."""
     return modulate(tp, complex_grids(tp, ts_padded, frame_idx0))
 
 
 def transmit_step_iq(tp: PlanTensors, ts_padded,
-                     frame_idx0: int) -> torch.Tensor:
+                     frame_idx0) -> torch.Tensor:
     """Like ``transmit_step`` but (B, samples, 2) f32 I/Q: on either
     device complex64 is interleaved (re, im), so this is a view."""
     return torch.view_as_real(transmit_step(tp, ts_padded, frame_idx0))
@@ -287,8 +301,10 @@ class Transmitter:
     """Streaming DVB-T2 transmitter: feed TS bytes, get baseband IQ.
 
     Holds the cross-step state (the 187-byte carry window per PLP and the
-    T2 frame counter) on the host, and the plan's constants on
-    ``device``.
+    T2 frame counter) on the host, and the plan's constants and its
+    compiled step (``compiled.CompiledStep``) on ``device``.  The eager
+    step function stays callable as ``_step_fn(tensors, windows,
+    frame_idx0)``.
     """
 
     def __init__(self, cfg: T2Config, batch_frames: Optional[int] = None,
@@ -306,6 +322,11 @@ class Transmitter:
         self.plan = plan
         set_full_fp32_matmul()
         self.tensors = plan_tensors(plan, self.device, planar)
+        # the counterpart of the JAX step's jax.jit, captured here, once:
+        # every step is then a replay, the first included, and a step's
+        # launch counts are its own (the warm-up's fall to construction)
+        self._compiled = CompiledStep(self._step_fn, self.tensors, plan,
+                                      self.device)
         self._carries = [np.zeros(187, dtype=np.uint8) for _ in plan.plps]
         self._frame_idx = 0
         self._steps_done = 0
@@ -347,8 +368,10 @@ class Transmitter:
         per-PLP windows.  Updates the carries, frame counter and counters
         like ``step_device``; with ``validate_ts`` each window's TS sync
         bytes are checked first and misses add to
-        ``counters.sync_errors``.  Returns the f32 (B, samples, 2) I/Q
-        tensor on the transmitter's device."""
+        ``counters.sync_errors``.  The windows and the frame counter are
+        staged into the compiled step, which runs.  Returns the f32
+        (B, samples, 2) I/Q tensor on the transmitter's device, which no
+        later step writes."""
         ws = _as_windows(self.plan, windows)
         self._check_streamable()
         t0 = time.perf_counter()
@@ -362,10 +385,7 @@ class Transmitter:
                 # slots sit at the plan's start phase
                 self.counters.sync_errors += check_ts_sync(
                     w[187:], phase=pp.bb.start_phase)
-        padded = [torch.tensor(w, device=self.device) for w in ws]
-        out = self._step_fn(self.tensors,
-                            padded if len(padded) > 1 else padded[0],
-                            self._frame_idx)
+        out = self._compiled(ws, self._frame_idx)
         self._carries = [w[-187:].copy() for w in ws]
         self._frame_idx = ((self._frame_idx + self.plan.batch_frames)
                            % self.cfg.t2_frames)

@@ -42,10 +42,8 @@ def sync(dev: torch.device) -> None:
 def kernel_launches() -> dict:
     """The kernel wrappers' launch counts, as ``chip_smoke.py`` reads
     them: a tool reports the difference over its timed work."""
-    from ..ops.ifft import ifft_gi
-    from ..ops.ldpc import ldpc_codeword
-    return {"ldpc_parity": ldpc_codeword.launches,
-            "ifft_gi": ifft_gi.launches}
+    from ..ops import kernel_wrappers
+    return {name: f.launches for name, f in kernel_wrappers().items()}
 
 
 def launches_since(before: dict) -> dict:

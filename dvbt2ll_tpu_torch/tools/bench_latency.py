@@ -5,8 +5,9 @@ of the JAX package's ``tools/bench_latency.py``.
 
 For each config (default vv009_4kshort, 8k_normal, 32k_extended and
 multiplp_fef) a ``Transmitter`` of one frame (``strict=False``) runs its
-step function on a pre-carried window already on the device.  Two
-readings:
+compiled step (``compiled.CompiledStep``, as the JAX tool times
+``tx._step``) on a pre-carried window already on the device, then its
+eager step function the same way.  Two readings of each:
 
 * 50 calls back to back with one ``torch.cuda.synchronize()`` at the
   end, as the JAX tool times them: the time a frame at batch 1, which is
@@ -16,7 +17,8 @@ readings:
 
 Each against the config's air time of a frame (``cfg.frame_duration``).
 Prints the card's name and power limit, then per config the JAX tool's
-line, a per-call line and one JSON line.
+line, a per-call line, the eager step's line and one JSON line (the
+compiled step's readings, its launches, and ``eager_`` ones).
 """
 from __future__ import annotations
 
@@ -35,18 +37,11 @@ from . import device_line, kernel_launches, launches_since, open_device, sync
 CONFIGS = ("vv009_4kshort", "8k_normal", "32k_extended", "multiplp_fef")
 
 
-def measure(name: str, device, iters: int = 50, calls: int = 200) -> dict:
-    cfg = named_config(name)
-    tx = Transmitter(cfg, 1, strict=False, device=device)
-    ws = [torch.from_numpy(np.concatenate(
-        [np.zeros(187, np.uint8), synthetic_ts(n, seed=3 + i)])).to(device)
-        for i, n in enumerate(tx.bytes_per_step_per_plp)]
-    w = ws if len(ws) > 1 else ws[0]
-
-    def step():
-        return tx._step_fn(tx.tensors, w, 0)
-
-    step()   # warm-up: allocations, cuFFT plans
+def _readings(step, device, iters: int, calls: int) -> dict:
+    """One warm-up call (allocations, cuFFT plans), then ``iters`` calls
+    back to back and ``calls`` calls each fenced alone; and the launches
+    of both."""
+    step()
     sync(device)
     before = kernel_launches()
     t0 = time.perf_counter()
@@ -60,14 +55,28 @@ def measure(name: str, device, iters: int = 50, calls: int = 200) -> dict:
         step()
         sync(device)
         per_call.append((time.perf_counter() - t0) * 1e3)
-    fd_ms = cfg.frame_duration * 1e3
-    median = float(np.median(per_call))
-    return {"config": name, "batch": 1, "device": device_line(device),
-            "frame_latency_ms": lat_ms, "frame_duration_s": cfg.frame_duration,
-            "x_realtime": fd_ms / lat_ms, "iters": iters,
-            "per_call_ms_median": median, "per_call_ms_max": max(per_call),
-            "per_call_x_realtime": fd_ms / median, "calls": calls,
+    return {"frame_latency_ms": lat_ms,
+            "per_call_ms_median": float(np.median(per_call)),
+            "per_call_ms_max": max(per_call),
             "launches": launches_since(before)}
+
+
+def measure(name: str, device, iters: int = 50, calls: int = 200) -> dict:
+    cfg = named_config(name)
+    tx = Transmitter(cfg, 1, strict=False, device=device)
+    ws = [torch.from_numpy(np.concatenate(
+        [np.zeros(187, np.uint8), synthetic_ts(n, seed=3 + i)])).to(device)
+        for i, n in enumerate(tx.bytes_per_step_per_plp)]
+    r = _readings(lambda: tx._compiled(ws, 0), device, iters, calls)
+    eager = _readings(lambda: tx._step_fn(
+        tx.tensors, ws if len(ws) > 1 else ws[0], 0), device, iters, calls)
+    fd_ms = cfg.frame_duration * 1e3
+    return {"config": name, "batch": 1, "device": device_line(device),
+            **r, "frame_duration_s": cfg.frame_duration,
+            "x_realtime": fd_ms / r["frame_latency_ms"], "iters": iters,
+            "per_call_x_realtime": fd_ms / r["per_call_ms_median"],
+            "calls": calls, "capture_s": tx._compiled.capture_s,
+            **{f"eager_{k}": v for k, v in eager.items()}}
 
 
 def main(argv=None) -> None:
@@ -88,6 +97,10 @@ def main(argv=None) -> None:
         print(f"{name:22s} per call: median {r['per_call_ms_median']:7.3f} "
               f"ms, max {r['per_call_ms_max']:7.3f} ms over {r['calls']} "
               f"calls ({r['per_call_x_realtime']:6.1f}x real time)")
+        print(f"{name:22s} eager step: {r['eager_frame_latency_ms']:7.3f} "
+              f"ms back to back, per call median "
+              f"{r['eager_per_call_ms_median']:7.3f} ms, max "
+              f"{r['eager_per_call_ms_max']:7.3f} ms")
         print(json.dumps(r), flush=True)
 
 

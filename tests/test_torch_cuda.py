@@ -16,7 +16,7 @@ import chip_smoke
 from dvbt2ll_tpu_torch import (MultiMuxTransmitter, MuxChannel,
                                ShardedTransmitter, StreamingExecutor,
                                Transmitter, build_plan, grids_symbol_sharded,
-                               make_mesh, min_batch_frames, named_config,
+                               halo_windows, make_mesh, min_batch_frames, named_config,
                                plan_tensors, synthetic_ts, transmit_step_iq,
                                vv009_config)
 from dvbt2ll_tpu_torch.config import (CodeRate, FrameSize, InputMode,
@@ -389,3 +389,175 @@ def test_config_matrix_on_card_matches_cpu(cuda, case):
     assert got["launches"] == {"ldpc_parity": case["steps"],
                                "ifft_gi": case["steps"] * planar}
     assert got["snr"] > 120
+
+
+# ----------------------------------------------------------- compiled step
+def _capture(fn):
+    """``fn()`` captured as a CUDA graph after one warm-up call on the
+    capture stream: (graph, its static output)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fn()
+    return graph, out
+
+
+def test_ldpc_launcher_captured_in_a_graph(cuda):
+    """The ctypes launcher's launch, recorded on PyTorch's capturing
+    stream, replays on new bits: the codeword of the new bits, bit for
+    bit against the twin."""
+    cfg = vv009_config()
+    sched = ldpc_schedule(qc_entries(cfg.frame_size, cfg.code_rate,
+                                     cfg.q_ldpc), cfg.nbch,
+                          cfg.ldpc_parity_bits, cfg.q_ldpc, cuda)
+    rng = np.random.default_rng(50)
+    bits = torch.from_numpy(rng.integers(0, 2, (67, cfg.nbch),
+                                         dtype=np.uint8)).to(cuda)
+    graph, out = _capture(lambda: ldpc_codeword(sched, bits))
+    for _ in range(2):
+        bits.copy_(torch.from_numpy(rng.integers(0, 2, (67, cfg.nbch),
+                                                 dtype=np.uint8)))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, ldpc_codeword_plain(sched, bits))
+
+
+def test_tail_launcher_captured_in_a_graph(cuda):
+    """The same for the tail kernel, at vv009's geometry."""
+    re, im, noise = _grids(cuda, 32)
+    p1 = noise.reshape(-1)[:2 * ifft.P1_LEN].reshape(-1, 2).clone()
+    tables = ifft.tail_tables(4096, 0.25, cuda)
+    graph, out = _capture(lambda: ifft.ifft_gi(re, im, p1, 4096, 128, 0.25,
+                                               tables))
+    for seed in (5, 6):
+        r2, i2, _ = _grids(cuda, 32, seed=seed)
+        re.copy_(r2)
+        im.copy_(i2)
+        graph.replay()
+        want = ifft.ofdm_tail_plain(re, im, p1, 4096, 128, 0.25, tables)
+        torch.cuda.synchronize()
+        g, w = out.cpu().numpy(), want.cpu().numpy()
+        snr = _snr_db(w[..., 0] + 1j * w[..., 1], g[..., 0] + 1j * g[..., 1])
+        assert snr > 120, f"{snr:.1f} dB"
+
+
+def test_tail_refuses_to_build_tables_while_capturing(cuda):
+    re, im, _ = _grids(cuda, 32)
+    p1 = torch.zeros((ifft.P1_LEN, 2), device=cuda)
+    ifft.ifft_gi(re, im, p1, 4096, 128, 1.0)   # warm-up
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            ifft.ifft_gi(re, im, p1, 4096, 128, 1.0)
+
+
+def _windows(tx, steps, seed):
+    """``steps`` consecutive pre-carried windows a PLP (one array, or a
+    list for several PLPs), with each step's first frame index."""
+    carries = [np.zeros(187, np.uint8) for _ in tx.plan.plps]
+    out, idx = [], 0
+    for k in range(steps):
+        ws = []
+        for i, n in enumerate(tx.bytes_per_step_per_plp):
+            w = np.concatenate([carries[i],
+                                synthetic_ts(n, seed=seed + 10 * k + i)])
+            carries[i] = w[-187:]
+            ws.append(w)
+        out.append((ws, idx))
+        idx = (idx + tx.plan.batch_frames) % tx.cfg.t2_frames
+    return out
+
+
+_COMPILED = [("vv009_4kshort", 47, True), ("vv009_4kshort", 256, False),
+             ("8k_normal", 256, False), ("32k_extended", 256, False),
+             ("multiplp_fef", None, True)]
+
+
+@pytest.mark.parametrize("name,batch,strict", _COMPILED,
+                         ids=[f"{n}-{b}" for n, b, _ in _COMPILED])
+def test_compiled_step_equals_eager(cuda, name, batch, strict):
+    """t2_frames + 1 steps through the compiled step, every output kept
+    until the end, each bit-identical to the eager step function on the
+    same window and frame index (47 frames: the index alternates), and
+    both kernels launched once a PLP a step under replay."""
+    cfg = named_config(name)
+    if batch is None:
+        batch = 3 * min_batch_frames(cfg)
+    kw = (dict(strict=True) if strict
+          else dict(strict=False, allow_phase_drift=True))
+    tx = Transmitter(cfg, batch, device=cuda, **kw)
+    steps = _windows(tx, cfg.t2_frames + 1, seed=60)
+    before = _launches()
+    got = [tx.step_window(ws if len(ws) > 1 else ws[0]) for ws, _ in steps]
+    n = len(steps) * len(tx.plan.plps)
+    assert _launches() == (before[0] + n,
+                           before[1] + len(steps) * select_step_iq(cfg)[1])
+    assert tx.state_dict()["frame_idx"] == (
+        len(steps) * batch % cfg.t2_frames)
+    for k, ((ws, idx), g) in enumerate(zip(steps, got)):
+        dev_ws = [torch.from_numpy(w).to(cuda) for w in ws]
+        want = tx._step_fn(tx.tensors, dev_ws if len(ws) > 1 else dev_ws[0],
+                           idx)
+        assert torch.equal(g, want), f"step {k}, frame index {idx}"
+
+
+def test_compiled_step_restores_the_frame_index(cuda):
+    """A checkpoint loaded mid-stream: the next step stages the restored
+    frame index (vv009 at 47 frames, where it alternates)."""
+    cfg = vv009_config()
+    tx = Transmitter(cfg, 47, device=cuda)
+    steps = _windows(tx, 3, seed=70)
+    tx.step_window(steps[0][0][0])
+    state = tx.state_dict()
+    again = Transmitter(cfg, 47, device=cuda)
+    again.load_state(state)
+    assert state["frame_idx"] == 1
+    got = again.step_window(steps[1][0][0])
+    want = tx._step_fn(tx.tensors, torch.from_numpy(steps[1][0][0]).to(cuda),
+                       1)
+    assert torch.equal(got, want)
+
+
+def test_executor_on_the_compiled_step_matches_eager(cuda):
+    """The executor's stream at vv009's 47 frames, every returned array
+    kept, against the eager step function's output on the same windows."""
+    cfg = vv009_config()
+    tx = Transmitter(cfg, 47, device=cuda)
+    steps = _windows(tx, 4, seed=80)
+    fresh = iter([ws[0][187:] for ws, _ in steps])
+    ex = StreamingExecutor(tx, lambda n: next(fresh))
+    got = [ex.step() for _ in steps][1:] + [ex.flush()]
+    for k, ((ws, idx), g) in enumerate(zip(steps, got)):
+        want = tx._step_fn(tx.tensors, torch.from_numpy(ws[0]).to(cuda), idx)
+        w = want.cpu().numpy()
+        assert np.array_equal(g, w.reshape(47, -1).view(np.complex64)), k
+
+
+def test_sixteen_compiled_slots_of_one_card(cuda):
+    """BASELINE config 5: 8 vv009 muxes strict at 47 frames a block over
+    16 slots of the card, t2_frames + 1 steps, every block a compiled
+    step, bit-identical to the eager step on its halo window and frame
+    index, both kernels launched 16 times a step."""
+    cfg = vv009_config()
+    stx = ShardedTransmitter(cfg, make_mesh([cuda] * 16, mux=8), n_mux=8,
+                             frames_per_shard=47)
+    carries = np.zeros((8, 187), np.uint8)
+    for k in range(cfg.t2_frames + 1):
+        ts = np.stack([synthetic_ts(stx.bytes_per_step_per_mux,
+                                    seed=90 + 8 * k + c) for c in range(8)])
+        windows = halo_windows(ts, carries, 2)
+        carries = ts[:, -187:]
+        before = _launches()
+        out = stx.step_device(ts)
+        assert _launches() == (before[0] + 16, before[1] + 16)
+        for c in range(8):
+            for s in range(2):
+                idx = (k * 94 + 47 * s) % cfg.t2_frames
+                dev = stx.mesh.devices[c, s]
+                want = stx._step_fn(stx.tensors[dev], torch.from_numpy(
+                    windows[c, s]).to(dev), idx)
+                assert torch.equal(out[c][s], want), (k, c, s)
