@@ -64,14 +64,19 @@ imports no JAX.  Phases, each of which raises on failure:
    tail, drift mode), each channel bit-identical to its standalone
    ``ShardedTransmitter`` and a checkpoint round trip reproducing the
    next step; (c) the symbol-sharded back-end at 32k_extended, 1 frame
-   over 4 slots, bit-identical to ``transmit_step_iq``; (d)
-   ``dryrun_multichip``, ``dryrun_multihost`` as two processes sharing
-   the card, and the multi-mux app as a subprocess with two ``--config``
-   files; (e) with two or more cards, (a) over the real cards with no
-   peer-to-peer copy in a profiled step, else a line saying why not;
-9b. the compiled step (``compiled.CompiledStep``, a CUDA graph a
-   transmitter, the counterpart of the JAX step's ``jax.jit``; every
-   phase above already runs through it): on vv009 at batch 256 and at its
+   over 4 slots, compiled (one CUDA graph on one card), bit-identical to
+   its eager form and to ``transmit_step_iq``, both timed, with the
+   graphs' pool; (d) ``dryrun_multichip``, ``dryrun_multihost`` as two
+   processes sharing the card, and the multi-mux app as a subprocess
+   with two ``--config`` files; (e) with two or more cards, (a) over the
+   real cards with one graph launch a card and no peer-to-peer copy in a
+   profiled step, and (c) over the cards (a graph a card segment), else
+   a line saying why not;
+9b. the compiled step (``compiled.CompiledStep``, one CUDA graph a
+   transmitter, and one a card for all of a ``ShardedTransmitter``'s
+   blocks there: the counterparts of the JAX step's ``jax.jit`` and of
+   its mesh step's ``jax.jit(_shard_map(...))``; every phase above
+   already runs through it): on vv009 at batch 256 and at its
    47-frame strict batch (odd: the frame index alternates), 8k_normal and
    32k_extended at 256 and multiplp_fef strict at 282, four steps, every
    output kept, each bit-identical to the eager step function on the same
@@ -80,8 +85,9 @@ imports no JAX.  Phases, each of which raises on failure:
    graph's pool and the peak memory each reserved, and on the card's
    clock a replay, the eager step and the output's copy; batch-1 latency
    compiled and eager (``bench_latency.measure``); and BASELINE config 5
-   (8 vv009 muxes over 16 compiled slots) block by block against the
-   eager step, with both aggregate rates;
+   (8 vv009 muxes over 16 slots of the card, one graph) block by block
+   against the eager step for t2_frames + 1 steps, with both aggregate
+   rates, the graph launches a step under torch.profiler and the pool;
 10. the measuring entry points, each a subprocess on the card whose
    output starts with the card line, each JSON line printed:
    ``tools.roofline`` at batch 256 on vv009, 8k_normal and 32k_extended
@@ -92,9 +98,9 @@ imports no JAX.  Phases, each of which raises on failure:
    ``paced`` for about 10 s of air (no sync errors, the paced lag at most
    one step, the sink's warm-up and timed samples exact), and
    ``tools.bench_scaling`` parts A and B, with part C when the phase so
-   far took less than 90 s; then part A's 4- and 8-slot steps again in
-   this process under torch.profiler (wall time, the card's kernel time,
-   the host's graph launches).  Each tool counts its kernel launches in
+   far took less than 90 s; then part A's 1-, 4- and 8-slot steps again
+   in this process under torch.profiler (wall time, the card's kernel
+   time, the host's graph launches and CUDA runtime calls a step).  Each tool counts its kernel launches in
    its own process and reports them; a replayed graph counts as the
    launches its capture recorded.
 
@@ -263,7 +269,8 @@ COMPILED_CHECK = 4     # steps held bit for bit: t2_frames + 2
 COMPILED_STEPS = 10    # timed steps, compiled and eager
 LATENCY_ITERS = 20     # phase 9b's batch-1 latency, back to back
 LATENCY_CALLS = 50     # and fenced alone
-TRACE_STEPS = 5        # phase 10's profiled 4- and 8-slot steps
+TRACE_STEPS = 5        # phase 10's profiled 1-, 4- and 8-slot steps
+SYMBOL_CALLS = 10      # timed symbol-sharded calls, compiled and eager
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1039,8 +1046,10 @@ def sharded_phase(torch, slots, label: str) -> tuple:
 
 def no_peer_copies(torch, stx, ts) -> None:
     """One more step of ``stx`` under torch.profiler: device activity
-    recorded, and no peer-to-peer memcpy among it."""
+    recorded, no peer-to-peer memcpy among it, and one graph launch a
+    card."""
     from torch.profiler import ProfilerActivity, profile
+    from dvbt2ll_tpu_torch.tools import host_api_calls
     n = stx.bytes_per_step_per_mux
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1051,9 +1060,13 @@ def no_peer_copies(torch, stx, ts) -> None:
     p2p = [e.key for e in events if "PtoP" in e.key]
     require(device_us > 0, "profiled sharded step: no device time recorded")
     require(not p2p, f"profiled sharded step: peer-to-peer copies {p2p}")
-    print(f"profiled sharded step over {len(stx.mesh.local_devices())} "
-          f"cards: {device_us:.1f} us of device time, no peer-to-peer "
-          f"memcpy")
+    cards = len(stx.mesh.local_devices())
+    calls = host_api_calls(prof, 1)
+    require(calls["cudaGraphLaunch"] == cards, f"profiled sharded step: "
+            f"{calls['cudaGraphLaunch']} graph launches on {cards} cards")
+    print(f"profiled sharded step over {cards} cards: {device_us:.1f} us "
+          f"of device time, no peer-to-peer memcpy, one graph launch a "
+          f"card; host CUDA calls {calls}")
 
 
 def multimux_phase(torch, dev, tmp: str) -> dict:
@@ -1120,31 +1133,62 @@ def multimux_phase(torch, dev, tmp: str) -> dict:
     return counts
 
 
-def symbol_sharded_phase(torch, dev) -> dict:
-    """32k_extended, 1 frame, the symbol axis over SYMBOL_SLOTS slots,
-    against the whole complex step on the card."""
+def symbol_sharded_phase(torch, slots) -> dict:
+    """32k_extended, 1 frame, the symbol axis over ``slots``: the compiled
+    callable (a graph on one card, else a graph a card segment) against
+    its eager form and the whole complex step on the first slot's card,
+    bit for bit, at frame indices 0 and 1; then both timed on the host
+    clock, fenced, a call at a time."""
     from dvbt2ll_tpu_torch import (build_plan, grids_symbol_sharded,
                                    make_mesh, named_config, plan_tensors,
                                    synthetic_ts, transmit_step_iq)
     cfg = named_config("32k_extended")
     plan = build_plan(cfg, 1, strict=False)
-    fn = grids_symbol_sharded(plan, make_mesh([dev] * SYMBOL_SLOTS, mux=1))
+    fn = grids_symbol_sharded(plan, make_mesh(slots, mux=1))
+    dev = fn.dev0
+    cards = list(dict.fromkeys(str(d) for d in fn.slots))
+    require(len(fn.graphs) == (1 if len(cards) == 1 else len(cards) + 1),
+            f"symbol-sharded over {cards}: {len(fn.graphs)} graphs")
     padded = torch.from_numpy(np.concatenate(
         [np.zeros(187, np.uint8),
          synthetic_ts(plan.ts_bytes_in, seed=SEED + 900)])).to(dev)
-    reset_launches()
-    got = fn(padded, 0)
-    sync(torch, [dev])
-    counts = launches()
-    want = transmit_step_iq(plan_tensors(plan, dev, False), padded, 0)
-    require(torch.equal(got, want), "symbol-sharded 32k_extended differs "
-            "from transmit_step_iq")
-    require(counts == {"ldpc_parity": 1, "ifft_gi": 0},
+    tp = plan_tensors(plan, dev, False)
+    counts = {"ldpc_parity": 0, "ifft_gi": 0}
+    for idx in (0, 1):
+        sync(torch, slots)
+        reset_launches()
+        got = fn(padded, idx)
+        sync(torch, slots)
+        counts = {k: counts[k] + v for k, v in launches().items()}
+        require(torch.equal(got, fn.eager(padded, idx)),
+                f"symbol-sharded 32k_extended over {cards} differs from its "
+                f"eager form at frame index {idx}")
+        require(torch.equal(got, transmit_step_iq(tp, padded, idx)),
+                f"symbol-sharded 32k_extended over {cards} differs from "
+                f"transmit_step_iq at frame index {idx}")
+    require(counts == {"ldpc_parity": 2, "ifft_gi": 0},
             f"symbol-sharded: launches {counts}")
+
+    def per_call(call) -> float:
+        call(padded, 0)
+        sync(torch, slots)
+        times = []
+        for _ in range(SYMBOL_CALLS):
+            t0 = time.perf_counter()
+            call(padded, 0)
+            sync(torch, slots)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    ms, eager_ms = per_call(fn), per_call(fn.eager)
     print(f"symbol-sharded 32k_extended, 1 frame ({cfg.num_symbols} "
-          f"symbols, padded to {-(-cfg.num_symbols // SYMBOL_SLOTS)} a slab) "
-          f"over {SYMBOL_SLOTS} slots of {dev}: bit-identical to "
-          f"transmit_step_iq; launches {counts}")
+          f"symbols, padded to {-(-cfg.num_symbols // len(slots))} a slab) "
+          f"over {len(slots)} slots of {cards}: compiled ({len(fn.graphs)} "
+          f"graph(s), capture {fn.capture_s * 1e3:.1f} ms, pools "
+          f"{_mb(fn.pool_bytes):.1f} MiB) bit-identical to its eager form "
+          f"and to transmit_step_iq at frame indices 0 and 1; a call "
+          f"fenced, median of {SYMBOL_CALLS}: {ms:.4f} ms compiled, "
+          f"{eager_ms:.4f} ms eager; launches {counts}")
     return counts
 
 
@@ -1190,7 +1234,8 @@ def multi_device_phase(torch, dev, tmp: str) -> dict:
     paths = {"sharded_vv009_8mux": counts}
     mm_counts = multimux_phase(torch, dev, tmp)
     paths.update(mm_counts)
-    paths["symbol_sharded_32k"] = symbol_sharded_phase(torch, dev)
+    paths["symbol_sharded_32k"] = symbol_sharded_phase(
+        torch, [dev] * SYMBOL_SLOTS)
     dryrun_app_phase(torch, dev, tmp)
     n_cards = torch.cuda.device_count()
     if n_cards >= 2:
@@ -1200,6 +1245,8 @@ def multi_device_phase(torch, dev, tmp: str) -> dict:
                                         f"sharded over {n_cards} cards")
         paths["sharded_vv009_8mux_cards"] = counts
         no_peer_copies(torch, stx, ts)
+        paths["symbol_sharded_32k_cards"] = symbol_sharded_phase(
+            torch, [cards[i % n_cards] for i in range(SYMBOL_SLOTS)])
     else:
         print(f"sharded over several cards: not run, "
               f"torch.cuda.device_count() is {n_cards}")
@@ -1285,8 +1332,8 @@ def compiled_path(torch, dev, name: str, batch, strict: bool) -> dict:
     # and the copy that hands each step's output to the caller
     replay_ms = cuda_ms(step._graph.replay)
     eager_dev_ms = cuda_ms(lambda: tx._step_fn(
-        tx.tensors, _one(step.windows), step.frame_idx))
-    copy_ms = cuda_ms(step._out.clone)
+        tx.tensors, _one([w[0] for w in step.windows]), step.frame_idx[0]))
+    copy_ms = cuda_ms(lambda: torch.stack(step._outs))
     print(f"{label}: {COMPILED_CHECK} steps (frame indices {indices}) "
           f"bit-identical to the eager step; device {replay_ms:.4f} ms a "
           f"replay, {eager_dev_ms:.4f} eager, output copy {copy_ms:.4f} "
@@ -1302,15 +1349,19 @@ def compiled_path(torch, dev, name: str, batch, strict: bool) -> dict:
 
 
 def compiled_sharded(torch, dev) -> dict:
-    """BASELINE config 5 through compiled slots: vv009 as SHARD_MUX muxes,
-    strict at 47 frames a block, over a (SHARD_MUX, SHARD_FRAME) mesh of
-    16 slots of the card, t2_frames + 1 steps, every block bit-identical
-    to the eager step on its halo window and frame index; then the
-    aggregate rate of the compiled step beside the eager blocks'."""
+    """BASELINE config 5 through the compiled mesh step: vv009 as
+    SHARD_MUX muxes, strict at 47 frames a block, over a (SHARD_MUX,
+    SHARD_FRAME) mesh of 16 slots of the card, one graph for all 16
+    blocks, t2_frames + 1 steps, every block bit-identical to the eager
+    step on its halo window and frame index; then the aggregate rate of
+    the compiled step beside the eager blocks', and one step under
+    torch.profiler: one graph launch, and the host's CUDA calls."""
+    from torch.profiler import ProfilerActivity, profile
     from dvbt2ll_tpu_torch import (ShardedTransmitter, make_mesh,
                                    min_batch_frames, synthetic_ts,
                                    vv009_config)
     from dvbt2ll_tpu_torch.parallel import halo_windows
+    from dvbt2ll_tpu_torch.tools import host_api_calls
     cfg = vv009_config()
     b = min_batch_frames(cfg)
     stx = ShardedTransmitter(cfg, make_mesh([dev] * (SHARD_MUX * SHARD_FRAME),
@@ -1362,17 +1413,30 @@ def compiled_sharded(torch, dev) -> dict:
                        "ifft_gi": blocks * SHARD_STEPS},
             f"compiled sharded: launches {counts}")
     samples = SHARD_MUX * stx.frames_per_step * cfg.samples_per_frame
-    steps = stx._steps.values()
+    steps = list(stx._steps.values())
+    require([st.blocks for st in steps] == [blocks],
+            f"compiled sharded: blocks a graph {[st.blocks for st in steps]}")
     capture_s = sum(st.capture_s for st in steps)
     pool = sum(st.pool_bytes for st in steps)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for k in range(TRACE_STEPS):
+            stx.step_device(ts[k])
+        torch.cuda.synchronize()
+    calls = host_api_calls(prof, TRACE_STEPS)
+    require(calls["cudaGraphLaunch"] == len(steps),
+            f"compiled sharded: {calls['cudaGraphLaunch']} graph launches a "
+            f"step on {len(steps)} card(s)")
     print(f"compiled sharded: vv009 x {SHARD_MUX} muxes over {blocks} slots "
           f"of {dev}, {b} frames a block, {cfg.t2_frames + 1} steps "
           f"bit-identical to the eager step block by block; a step "
           f"{ms:.4f} ms compiled = {samples / ms / 1e3:.2f} Msamples/s, "
           f"{eager_ms:.4f} ms eager = {samples / eager_ms / 1e3:.2f} "
-          f"Msamples/s (host staging included); {blocks} captures "
-          f"{capture_s * 1e3:.1f} ms, pools {_mb(pool):.1f} MiB; launches "
-          f"{counts}")
+          f"Msamples/s (host staging included); {len(steps)} graph of "
+          f"{blocks} blocks, capture {capture_s * 1e3:.1f} ms, pool "
+          f"{_mb(pool):.1f} MiB; profiled, a step: "
+          f"{calls['cudaGraphLaunch']:g} graph launch, host CUDA calls "
+          f"{calls}; launches {counts}")
     return counts
 
 
@@ -1405,13 +1469,16 @@ def compiled_phase(torch, dev) -> dict:
 
 
 def slot_trace(torch, dev) -> None:
-    """``bench_scaling`` part A's 4- and 8-slot steps again, in this
+    """``bench_scaling`` part A's 1-, 4- and 8-slot steps again, in this
     process, under torch.profiler: wall time a step beside the card's
-    kernel time and the host's graph launches, to say whether the host or
-    the card sets the step's time."""
+    kernel time, the host's time in graph launches, and the host's graph
+    launches (one a step: the card's slots are one graph) and CUDA
+    runtime calls a step, to say whether the host or the card sets the
+    step's time and that the host's work does not grow with the slots."""
     from torch.profiler import ProfilerActivity, profile
+    from dvbt2ll_tpu_torch.tools import host_api_calls
     from dvbt2ll_tpu_torch.tools.bench_scaling import TOTAL_FRAMES, _sharded
-    for n in (4, 8):
+    for n in (1, 4, 8):
         _, stx, ts = _sharded([dev] * n, TOTAL_FRAMES)
         stx.step_device(ts)
         torch.cuda.synchronize()
@@ -1427,11 +1494,15 @@ def slot_trace(torch, dev) -> None:
                         for e in events) / TRACE_STEPS / 1e3
         launch_ms = sum(e.cpu_time_total for e in events
                         if e.key == "cudaGraphLaunch") / TRACE_STEPS / 1e3
+        calls = host_api_calls(prof, TRACE_STEPS)
         require(device_ms > 0, f"slot trace {n}: no device time recorded")
+        require(calls["cudaGraphLaunch"] == 1, f"slot trace {n}: "
+                f"{calls['cudaGraphLaunch']} graph launches a step")
         print(f"slot trace, {n} slots of {dev} ({TOTAL_FRAMES} frames, "
               f"profiled): {wall:.4f} ms a step, device {device_ms:.4f} ms "
               f"(busy {device_ms / wall:.3f}), cudaGraphLaunch on the host "
-              f"{launch_ms:.4f} ms")
+              f"{launch_ms:.4f} ms; a step {calls['cudaGraphLaunch']:g} "
+              f"graph launch, host CUDA calls {calls}")
 
 
 def run_tool(args: list, card: str) -> list:

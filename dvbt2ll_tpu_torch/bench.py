@@ -111,8 +111,9 @@ def run(batch: int, steps: int, name: str, device) -> dict:
     tx = Transmitter(cfg, batch, strict=False, allow_phase_drift=True,
                      device=device)
     windows, fresh = staged_windows(tx, device)
-    dt, launches = _timed(lambda w: tx._compiled(_as_list(w), 0), windows,
-                          steps, device)
+    dt, launches = _timed(
+        lambda w: tx._compiled([x[None] for x in _as_list(w)], [0]),
+        windows, steps, device)
     dt_eager, _ = _timed(lambda w: tx._step_fn(tx.tensors, w, 0), windows,
                          steps, device)
     dt_host, _ = _timed(tx.step_device, fresh, steps, device)

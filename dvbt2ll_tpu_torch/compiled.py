@@ -1,31 +1,39 @@
 """The compiled step: the counterpart of the JAX ``Transmitter``'s
-``jax.jit(functools.partial(step_fn, plan))`` (``dvbt2ll_tpu/pipeline.py``).
+``jax.jit(functools.partial(step_fn, plan))`` (``dvbt2ll_tpu/pipeline.py``)
+and, over the blocks of one device, of the ``ShardedTransmitter``'s
+``jax.jit(_shard_map(shard_fn))`` (``dvbt2ll_tpu/parallel/sharding.py``).
 
-On a CUDA device ``CompiledStep`` captures one call of a step function
-(``pipeline.select_step_iq``) on static inputs as a ``torch.cuda.CUDAGraph``
-and replays it every step, so the whole step (both hand-written kernels,
-the cuBLAS products and the cuFFT transforms included) is one launch from
-the host.  Its static inputs are one uint8 window a PLP (the 187 carried
-bytes, then the step's fresh bytes) and the step's first T2 frame index,
-a 0-d int64 tensor that the frame builder reads at every replay (the JAX
-step's traced ``jnp.int32(frame_idx)``).
+``Graph`` captures a function once on a CUDA device as a
+``torch.cuda.CUDAGraph`` and replays it.  ``CompiledStep`` runs a step
+function (``pipeline.select_step_iq``) over ``blocks`` blocks of one plan
+on one device: on a card all of them are one graph, so the whole step of
+every block (both hand-written kernels, the cuBLAS products and the cuFFT
+transforms included) is one launch from the host.  The single-chain
+``Transmitter`` is the case of one block.  The static inputs are one
+(blocks, 187 + fresh bytes) uint8 window a PLP, row i for block i, and a
+(blocks,) int64 frame index, element i block i's first T2 frame index,
+which the frame builder reads at every replay (the JAX step's traced
+``jnp.int32(frame_idx)``).
 
-A call stages the windows (host arrays through pinned buffers, or tensors
-by a device copy), writes the frame index, replays, and returns a copy of
-the graph's static output made on the device.  The next replay overwrites
-the static output, which lies in the graph's private memory pool, where
-``Tensor.record_stream`` protects nothing; the copy comes from the
-caching allocator, so a tensor that a step returns is the caller's and no
-later step writes to it.
+A step stages its inputs through one pinned host buffer a PLP and one for
+the frame indices, each reaching its static input by one asynchronous
+copy (``host_inputs`` hands the pinned rows to a caller that writes them
+in place), replays, and returns one copy of the blocks' outputs stacked,
+made on the device.  The next replay overwrites the graph's static
+outputs, which lie in its private memory pool, where
+``Tensor.record_stream`` protects nothing; the stacked copy comes from
+the caching allocator, so a tensor that a step returns, and each block's
+view of it, is the caller's and no later step writes to it.
 
 The kernel wrappers count their launches in Python, which a replay does
 not run.  A capture launches nothing, so its increase of each count is
 taken back and added at every replay instead: the counts read as in eager
 mode.
 
-On the CPU the same class stages into the same static inputs and calls
-the step function, with no graph.  On a CUDA device a capture that fails
-raises; there is no eager fallback.
+On the CPU ``CompiledStep`` runs the step function on each block's row of
+the same static inputs, with no graph, and the host rows are the static
+inputs themselves.  On a CUDA device a capture that fails raises; there is
+no eager fallback.
 """
 from __future__ import annotations
 
@@ -37,43 +45,19 @@ import torch
 from .ops import kernel_wrappers
 
 
-class CompiledStep:
-    """``step_fn(tensors, windows, frame_idx0)`` for one plan on
-    ``device``: a CUDA graph captured at construction, or on the CPU the
-    eager call on the same static inputs.
+class Graph:
+    """``fn()`` captured once on the CUDA ``device``: ``out`` is what the
+    capture returned (the graph's static outputs) and ``replay()`` runs the
+    graph again on the device's current stream.
 
-    ``capture_s`` is the warm-up and capture time on the host clock and
+    The warm-up (the kernel library's first load, cuBLAS's handle and
+    workspace, cuFFT's plans: real launches, counted) and the capture run
+    on a side stream.  ``capture_s`` is their time on the host clock and
     ``pool_bytes`` the device memory that the graph's private pool
-    reserved (both 0 on the CPU)."""
+    reserved."""
 
-    def __init__(self, step_fn, tensors, plan, device):
+    def __init__(self, fn, device):
         self.device = torch.device(device)
-        self._step_fn = step_fn
-        self._tensors = tensors
-        self._sizes = [187 + pp.ts_bytes_in for pp in plan.plps]
-        self.windows = [torch.zeros(n, dtype=torch.uint8, device=self.device)
-                        for n in self._sizes]
-        self.frame_idx = torch.zeros((), dtype=torch.int64,
-                                     device=self.device)
-        self.capture_s = 0.0
-        self.pool_bytes = 0
-        self._graph = None
-        if self.device.type == "cuda":
-            # pinned staging: a host window reaches its static buffer by an
-            # asynchronous copy, so the host does not wait for the card
-            self._host = [torch.empty(n, dtype=torch.uint8, pin_memory=True)
-                          for n in self._sizes]
-            self._staged = torch.cuda.Event()
-            self._capture()
-
-    def _run(self) -> torch.Tensor:
-        ws = self.windows if len(self.windows) > 1 else self.windows[0]
-        return self._step_fn(self._tensors, ws, self.frame_idx)
-
-    def _capture(self) -> None:
-        """Warm up on the capture stream (the kernel library's first load,
-        cuBLAS's handle and workspace, cuFFT's plans: real launches,
-        counted), then capture one call."""
         dev = self.device
         t0 = time.perf_counter()
         wrappers = kernel_wrappers()
@@ -81,7 +65,7 @@ class CompiledStep:
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
-                self._run()
+                fn()
             side.synchronize()
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(dev)
@@ -90,59 +74,131 @@ class CompiledStep:
             try:
                 with torch.cuda.graph(graph, stream=side,
                                       capture_error_mode="thread_local"):
-                    out = self._run()
+                    out = fn()
             finally:
-                self._replay_launches = {k: f.launches - before[k]
-                                         for k, f in wrappers.items()}
+                self._launches = {k: f.launches - before[k]
+                                  for k, f in wrappers.items()}
                 for k, f in wrappers.items():
                     f.launches = before[k]
             torch.cuda.synchronize(dev)
             self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self._graph, self._out = graph, out
+        self._graph, self.out = graph, out
         self.capture_s = time.perf_counter() - t0
 
-    def stage(self, windows, frame_idx: int) -> None:
-        """Write one step's inputs: ``windows``, one a PLP, each 187 +
-        fresh bytes as a uint8 host array or tensor, and the step's first
-        T2 frame index."""
+    def replay(self) -> None:
+        with torch.cuda.device(self.device):
+            self._graph.replay()
+        for k, f in kernel_wrappers().items():
+            f.launches += self._launches[k]
+
+
+class CompiledStep:
+    """``step_fn(tensors, windows, frame_idx0)`` for one plan over
+    ``blocks`` blocks on ``device``, in block order: one CUDA graph
+    captured at construction, or on the CPU the eager calls on the same
+    static inputs.
+
+    ``capture_s`` is the warm-up and capture time on the host clock and
+    ``pool_bytes`` the device memory that the graph's private pool
+    reserved (both 0 on the CPU)."""
+
+    def __init__(self, step_fn, tensors, plan, device, blocks: int = 1):
+        self.device = torch.device(device)
+        self.blocks = blocks
+        self._step_fn = step_fn
+        self._tensors = tensors
+        self._sizes = [187 + pp.ts_bytes_in for pp in plan.plps]
+        self.windows = [torch.zeros((blocks, n), dtype=torch.uint8,
+                                    device=self.device)
+                        for n in self._sizes]
+        self.frame_idx = torch.zeros(blocks, dtype=torch.int64,
+                                     device=self.device)
+        self.capture_s = 0.0
+        self.pool_bytes = 0
+        self._graph = None
+        if self.device.type != "cuda":
+            self._host, self._host_idx = self.windows, self.frame_idx
+            return
+        # pinned staging: the host rows reach the static inputs by
+        # asynchronous copies, so the host does not wait for the card
+        self._host = [torch.empty((blocks, n), dtype=torch.uint8,
+                                  pin_memory=True) for n in self._sizes]
+        self._host_idx = torch.empty(blocks, dtype=torch.int64,
+                                     pin_memory=True)
+        self._staged = torch.cuda.Event()
+        self._graph = Graph(self._run, self.device)
+        self._outs = self._graph.out
+        self.capture_s = self._graph.capture_s
+        self.pool_bytes = self._graph.pool_bytes
+
+    def _run(self) -> list:
+        """The step function on each block's row of the static inputs."""
+        outs = []
+        for i in range(self.blocks):
+            ws = [w[i] for w in self.windows]
+            outs.append(self._step_fn(self._tensors,
+                                      ws if len(ws) > 1 else ws[0],
+                                      self.frame_idx[i]))
+        return outs
+
+    def host_inputs(self) -> tuple:
+        """The host rows of the next step, to write in place: one
+        (blocks, 187 + fresh bytes) uint8 array a PLP and the (blocks,)
+        int64 frame indices.  On a card they are pinned, and this first
+        waits until the previous step's copies have read them; ``upload``
+        then sends them.  On the CPU they are the static inputs."""
+        if self._graph is not None:
+            self._staged.synchronize()
+        return [h.numpy() for h in self._host], self._host_idx.numpy()
+
+    def upload(self, plps=None) -> None:
+        """Send the host rows written since ``host_inputs`` to the card:
+        the frame indices and the windows of ``plps`` (default every PLP),
+        one asynchronous copy each.  Nothing to do on the CPU."""
+        if self._graph is None:
+            return
+        plps = range(len(self._sizes)) if plps is None else plps
+        with torch.cuda.device(self.device):
+            for p in plps:
+                self.windows[p].copy_(self._host[p], non_blocking=True)
+            self.frame_idx.copy_(self._host_idx, non_blocking=True)
+            self._staged.record(torch.cuda.current_stream(self.device))
+
+    def stage(self, windows, frame_idx) -> None:
+        """Write one step's inputs: ``windows``, one a PLP, each (blocks,
+        187 + fresh bytes) uint8 as a host array or a tensor (a tensor is
+        copied on the device), and the blocks' first T2 frame indices."""
         if len(windows) != len(self.windows):
             raise ValueError(f"{len(windows)} windows for "
                              f"{len(self.windows)} PLPs")
         for w, n in zip(windows, self._sizes):
-            if tuple(w.shape) != (n,):
+            if tuple(w.shape) != (self.blocks, n):
                 raise ValueError(f"window of shape {tuple(w.shape)}, "
-                                 f"expected ({n},)")
-        if self.device.type != "cuda":
-            for d, w in zip(self.windows, windows):
-                if torch.is_tensor(w):
-                    d.copy_(w)
-                else:
-                    np.copyto(d.numpy(), w, casting="no")
-            self.frame_idx.fill_(frame_idx)
-            return
-        with torch.cuda.device(self.device):
-            # the previous step's copies have read the pinned buffers
-            self._staged.synchronize()
-            for d, h, w in zip(self.windows, self._host, windows):
-                if torch.is_tensor(w):
-                    d.copy_(w)
-                else:
-                    np.copyto(h.numpy(), w, casting="no")
-                    d.copy_(h, non_blocking=True)
-            self._staged.record(torch.cuda.current_stream(self.device))
-            self.frame_idx.fill_(frame_idx)
+                                 f"expected ({self.blocks}, {n})")
+        if len(frame_idx) != self.blocks:
+            raise ValueError(f"{len(frame_idx)} frame indices for "
+                             f"{self.blocks} blocks")
+        rows, idx = self.host_inputs()
+        idx[:] = frame_idx
+        hosted = []
+        for p, (d, row, w) in enumerate(zip(self.windows, rows, windows)):
+            if torch.is_tensor(w):
+                d.copy_(w)
+            else:
+                np.copyto(row, w, casting="no")
+                hosted.append(p)
+        self.upload(hosted)
 
     def replay(self) -> torch.Tensor:
-        """The step on the staged inputs: (B, samples, 2) f32 I/Q, a tensor
-        that no later step writes."""
+        """The step on the staged inputs: (blocks, B, samples, 2) f32 I/Q,
+        block i from row i of the static inputs; one stacked copy, which
+        no later step writes."""
         if self._graph is None:
-            return self._run()
+            return torch.stack(self._run())
+        self._graph.replay()
         with torch.cuda.device(self.device):
-            self._graph.replay()
-            for k, f in kernel_wrappers().items():
-                f.launches += self._replay_launches[k]
-            return self._out.clone()
+            return torch.stack(self._outs)
 
-    def __call__(self, windows, frame_idx: int) -> torch.Tensor:
+    def __call__(self, windows, frame_idx) -> torch.Tensor:
         self.stage(windows, frame_idx)
         return self.replay()

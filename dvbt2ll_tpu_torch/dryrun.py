@@ -11,7 +11,8 @@ OFDM back-end against ``pipeline.transmit_step_iq``.
 
 ``multihost``: one single-process run of the cases, then two processes
 joined by ``torch.distributed`` (gloo, a localhost rendezvous on a free
-port), each running only its half of the global mesh: a vv009 drift step
+port), each running only its half of the global mesh (one compiled step
+a device over its own blocks, none for the other's): a vv009 drift step
 and two strict steps of a phase-invariant HIEFF config.  The steps call
 no collective; rank 0 gathers the blocks afterwards and asserts them
 bit-identical to the single-process run.  Every worker has a time limit.
@@ -234,6 +235,10 @@ def _worker(device, slots: int, rank: int, port: int, truth: str) -> None:
                         mine[(name, c, s)] = o.cpu().numpy()
         stx = ShardedTransmitter(phase_invariant_config(), mesh,
                                  n_mux=N_MUX, frames_per_shard=1)
+        compiled = sum(st.blocks for st in stx._steps.values())
+        if compiled != len(mine) // len(outs):
+            raise RuntimeError(f"compiled steps over {compiled} blocks, "
+                               f"this process owns {len(mine) // len(outs)}")
         try:
             stx(np.zeros((N_MUX, stx.bytes_per_step_per_mux), np.uint8))
         except RuntimeError:

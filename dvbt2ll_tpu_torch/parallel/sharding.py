@@ -20,14 +20,18 @@ gathers (``__call__``, ``stream``) come after the step.
 
 A slot may repeat a device: sixteen slots of one card run sixteen blocks
 in turn on that card's current stream, which is how one card serves
-BASELINE config 5 (8+ independent channels).  Under a
+BASELINE config 5 (8+ independent channels).  All the blocks of one
+device are one ``compiled.CompiledStep``, on a card one CUDA graph: the
+counterpart of the JAX package's one ``jax.jit(_shard_map(...))`` program
+over the mesh, a program a card.  Under a
 ``torch.distributed`` process group the mesh spans every process, each
 process runs only the blocks of the slots it owns, and the step still
 calls no collective (the counterpart of ``_mesh_put`` under
 ``jax.process_count() > 1``).
 
 ``grids_symbol_sharded`` shards the symbol axis of one frame's OFDM
-back-end instead, for 32K single-frame latency work.
+back-end instead, for 32K single-frame latency work, compiled as the JAX
+package's ``jax.jit(fn)`` is.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..compiled import CompiledStep
+from ..compiled import CompiledStep, Graph
 from ..config import T2Config
 from ..convert import plan_tensors
 from ..ops.ifft import set_full_fp32_matmul
@@ -133,20 +137,32 @@ def halo_windows(ts_streams: np.ndarray, carries: np.ndarray,
     c, total = ts_streams.shape
     per = total // n_shards
     assert per * n_shards == total
-    padded = np.concatenate([carries, ts_streams], axis=1)
     out = np.empty((c, n_shards, 187 + per), dtype=np.uint8)
-    for s in range(n_shards):
-        out[:, s] = padded[:, s * per : s * per + 187 + per]
+    for i in range(c):
+        for s in range(n_shards):
+            _write_window(out[i, s], carries[i], ts_streams[i], s * per)
     return out
+
+
+def _write_window(dst: np.ndarray, carry: np.ndarray, stream: np.ndarray,
+                  start: int) -> None:
+    """One window of ``halo_windows``, written in place: ``dst`` = (carry
+    ++ stream)[start:start + len(dst)], the window of the shard whose
+    fresh bytes start ``start`` bytes into the step.  The sharded step
+    writes each block's straight into its pinned staging row."""
+    k = max(0, 187 - start)          # bytes that come from the carry
+    dst[:k] = carry[start:start + k]
+    dst[k:] = stream[start + k - 187:start + len(dst) - 187]
 
 
 class ShardedTransmitter:
     """N independent DVB-T2 muxes, frames sharded over a device mesh.
 
     Each slot runs the single-chain step (``pipeline.select_step_iq``) on
-    its (mux-slice, frame-slice) block, on its own device, as one
-    ``compiled.CompiledStep`` a block (on a CUDA slot a captured graph);
-    no block's data moves to another device inside the step.
+    its (mux-slice, frame-slice) blocks, on its own device.  The blocks
+    of one device are one ``compiled.CompiledStep`` (on a card one
+    captured graph), in slot order; no block's data moves to another
+    device inside the step.
     """
 
     def __init__(self, cfg: T2Config, mesh: DeviceMesh, n_mux: int = 1,
@@ -186,19 +202,20 @@ class ShardedTransmitter:
                         for d in mesh.local_devices()}
         self.frame_shards = frame_shards
         self.mux_per_shard = n_mux // mux_shards
-        # one compiled step a block (one mux's share of a slot), on the
-        # slot's device with the block's frame index as its device input:
-        # the counterpart of the JAX package's jax.jit(_shard_map(...)).
-        # A block has its own static inputs, so every block is staged
-        # before any block runs.
-        self._steps = {}
+        # the blocks (c, f), one mux's share of a slot, of each device in
+        # slot order, and one compiled step a device over its blocks, each
+        # block's frame index a device input: the counterpart of the JAX
+        # package's jax.jit(_shard_map(...)), one program a card
+        self._blocks = {}
         for (m, f), dev in np.ndenumerate(mesh.devices):
             if dev is None:
                 continue  # another process's slot
-            for c in range(m * self.mux_per_shard,
-                           (m + 1) * self.mux_per_shard):
-                self._steps[c, f] = CompiledStep(
-                    self._step_fn, self.tensors[dev], self.plan, dev)
+            self._blocks.setdefault(dev, []).extend(
+                (c, f) for c in range(m * self.mux_per_shard,
+                                      (m + 1) * self.mux_per_shard))
+        self._steps = {dev: CompiledStep(self._step_fn, self.tensors[dev],
+                                         self.plan, dev, len(blocks))
+                       for dev, blocks in self._blocks.items()}
         self.frames_per_step = self.plan.batch_frames * frame_shards
         n_plp = len(self.plan.plps)
         self._carries = np.zeros((n_mux, n_plp, 187), dtype=np.uint8)
@@ -209,11 +226,13 @@ class ShardedTransmitter:
         for a single-PLP chain, or a sequence of such arrays (one per PLP,
         sized n_mux x bytes_per_step_per_mux_per_plp[i]).
 
-        Every block's window is staged into its compiled step on its
-        slot's device, then every block's step is enqueued there, before
-        any result is read.  Returns ``out[c][s]``, for mux c and frame
-        shard s, the f32 (B_local, samples, 2) I/Q tensor on that block's
-        device, or None where another process owns the slot."""
+        Every block's halo window and frame index is written into its
+        row of its device's pinned staging and sent with one copy a PLP
+        a device, then each device's step is one replay, before any result
+        is read.  Returns ``out[c][s]``, for mux c and frame shard s, the
+        f32 (B_local, samples, 2) I/Q tensor on that block's device (a
+        view of its device's stacked output), or None where another
+        process owns the slot."""
         cfg = self.cfg
         if (self._step_no and not self._allow_phase_drift
                 and not self._phase_invariant):
@@ -232,11 +251,6 @@ class ShardedTransmitter:
             if s.shape != (self.n_mux, want):
                 raise ValueError(f"TS of shape {s.shape}, expected "
                                  f"({self.n_mux}, {want})")
-        windows = []
-        for i, s in enumerate(streams):
-            windows.append(halo_windows(s, self._carries[:, i],
-                                        self.frame_shards))
-            self._carries[:, i] = s[:, -187:]
         # T2 frame index of the first frame of each shard; keep the step
         # counter bounded (only its value mod t2_frames matters)
         self._step_no %= cfg.t2_frames
@@ -245,13 +259,25 @@ class ShardedTransmitter:
                 ) % cfg.t2_frames
         self._step_no += 1
 
-        # every block is staged before any block runs, so no staging
-        # waits for another block's step
-        for (c, f), step in self._steps.items():
-            step.stage([w[c, f] for w in windows], int(fidx[f]))
+        # the halo windows go straight into the pinned rows; every device
+        # is staged before any device runs, so no staging waits for
+        # another device's step
+        per = [s.shape[1] // self.frame_shards for s in streams]
+        for dev, step in self._steps.items():
+            rows, idx = step.host_inputs()
+            for j, (c, f) in enumerate(self._blocks[dev]):
+                idx[j] = fidx[f]
+                for i, s in enumerate(streams):
+                    _write_window(rows[i][j], self._carries[c, i], s[c],
+                                  f * per[i])
+            step.upload()
+        for i, s in enumerate(streams):
+            self._carries[:, i] = s[:, -187:]
         out = [[None] * self.frame_shards for _ in range(self.n_mux)]
-        for (c, f), step in self._steps.items():
-            out[c][f] = step.replay()
+        for dev, step in self._steps.items():
+            stacked = step.replay()
+            for j, (c, f) in enumerate(self._blocks[dev]):
+                out[c][f] = stacked[j]
         return out
 
     def _require_whole_mesh(self) -> None:
@@ -263,10 +289,17 @@ class ShardedTransmitter:
 
     def gather(self, out: list) -> np.ndarray:
         """``step_device``'s blocks -> complex64 (n_mux, frames_per_step,
-        samples_per_frame) on the host, after the step."""
+        samples_per_frame) on the host, after the step: one
+        device-to-host copy a device."""
         self._require_whole_mesh()
-        iq = np.stack([torch.cat([o.cpu() for o in row]).numpy()
-                       for row in out])
+        iq = None
+        for dev, blocks in self._blocks.items():
+            host = torch.stack([out[c][f] for c, f in blocks]).cpu().numpy()
+            if iq is None:
+                iq = np.empty((self.n_mux, self.frame_shards)
+                              + host.shape[1:], host.dtype)
+            for j, (c, f) in enumerate(blocks):
+                iq[c, f] = host[j]
         return iq.reshape(self.n_mux, self.frames_per_step,
                           -1).view(np.complex64)
 
@@ -357,40 +390,145 @@ class ShardedTransmitter:
 
 
 def grids_symbol_sharded(plan: TransmitPlan, mesh: DeviceMesh,
-                         axis: str = "frame"):
+                         axis: str = "frame") -> "SymbolShardedStep":
     """Sequence-parallel OFDM back-end: shard one step's (B, S, fft) grids
     over the symbol axis for the IFFT and guard interval, for very large
     FFT sizes where a single frame's IFFTs dominate latency.
 
     Returns ``fn(ts_padded, frame_idx0)`` -> (B, samples, 2) f32 on the
-    first slot's device, the contract of ``pipeline.transmit_step_iq``.
-    FEC, the mapper and the frame builder run on the first slot's device;
-    the symbol axis is zero-padded to the shard count and each slot of
-    ``axis`` runs inverse sinc, IFFT, scale and guard interval on its
-    contiguous slab; the slabs come back to the first device, are cut to
-    S, and P1 and the I/Q planes follow.  That copy back is this
-    function's own gather, outside the collective-free step."""
+    first slot's device, the contract of ``pipeline.transmit_step_iq``,
+    compiled as the JAX package's ``jax.jit(fn)`` is
+    (``SymbolShardedStep``).  FEC, the mapper and the frame builder run
+    on the first slot's device; the symbol axis is zero-padded to the
+    shard count and each slot of ``axis`` runs inverse sinc, IFFT, scale
+    and guard interval on its contiguous slab; the slabs come back to the
+    first device, are cut to S, and P1 and the I/Q planes follow.  That
+    copy back is this function's own gather, outside the collective-free
+    step."""
     slots = list(mesh.devices[0, :] if axis == "frame"
                  else mesh.devices[:, 0])
     if any(d is None for d in slots):
         raise ValueError(f"symbol sharding needs every slot of the {axis} "
                          f"axis in this process")
-    cfg = plan.cfg
-    dev0 = slots[0]
-    tp = plan_tensors(plan, dev0, planar=False)
-    eq = {d: None if tp.tail.eq is None else tp.tail.eq.to(d)
-          for d in dict.fromkeys(slots)}
-    n, s, fft = len(slots), cfg.num_symbols, cfg.fft_points
+    return SymbolShardedStep(plan, slots)
 
-    def fn(ts_padded, frame_idx0: int) -> torch.Tensor:
-        grids = complex_grids(tp, ts_padded, frame_idx0)
+
+class SymbolShardedStep:
+    """``grids_symbol_sharded``'s callable over ``slots``.
+
+    When every slot is on one device, the call is one
+    ``compiled.CompiledStep`` of one block: on a card one CUDA graph, on
+    the CPU the eager computation on its static inputs.  When the slots
+    span cards, it is one CUDA graph a card segment: the front on the
+    first card (FEC, mapper, frame builder, padding, and the first card's
+    slabs), then each other card's slabs, then the back on the first card
+    (the slabs cut to S, P1, the I/Q planes).  The slabs move between the
+    segments by peer copies, which PyTorch orders with events on both
+    cards' current streams; the host waits for nothing inside a call, and
+    no capture holds a peer copy.  ``eager`` is the same computation op
+    by op.  ``graphs`` lists the captured graphs (none on the CPU),
+    ``capture_s`` and ``pool_bytes`` their sums."""
+
+    def __init__(self, plan: TransmitPlan, slots: list):
+        self.cfg = plan.cfg
+        self.slots = slots
+        self.dev0 = dev0 = slots[0]
+        self.tp = plan_tensors(plan, dev0, planar=False)
+        self._eq = {d: None if self.tp.tail.eq is None
+                    else self.tp.tail.eq.to(d)
+                    for d in dict.fromkeys(slots)}
+        cards = list(dict.fromkeys(slots))
+        if len(cards) == 1:
+            self._step = CompiledStep(
+                lambda tp, ws, fi: self.eager(ws, fi), self.tp, plan, dev0)
+            self.graphs = ([] if self._step._graph is None
+                           else [self._step._graph])
+        else:
+            self._step = None
+            self._segments(plan, cards)
+        self.capture_s = sum(g.capture_s for g in self.graphs)
+        self.pool_bytes = sum(g.pool_bytes for g in self.graphs)
+
+    def _front(self, ts_padded, frame_idx0) -> tuple:
+        """FEC, mapper and frame builder, the symbol axis padded to the
+        slot count: one (B, S_pad / n, fft) slab a slot."""
+        cfg, n = self.cfg, len(self.slots)
+        grids = complex_grids(self.tp, ts_padded, frame_idx0)
         b = grids.shape[0]
-        g = torch.cat([grids, grids.new_zeros(b, (-s) % n, fft)], dim=1)
-        slabs = [symbols_with_gi(cfg, slab.to(d), eq[d])
-                 for slab, d in zip(g.chunk(n, dim=1), slots)]
-        body = torch.cat([t.to(dev0) for t in slabs], dim=1)[:, :s]
-        out = torch.cat([tp.tail.p1.expand(b, -1), body.reshape(b, -1)],
+        g = torch.cat([grids, grids.new_zeros(b, (-cfg.num_symbols) % n,
+                                              cfg.fft_points)], dim=1)
+        return g.chunk(n, dim=1)
+
+    def _slab(self, slab: torch.Tensor, d) -> torch.Tensor:
+        return symbols_with_gi(self.cfg, slab, self._eq[d])
+
+    def _back(self, slabs: list) -> torch.Tensor:
+        b = slabs[0].shape[0]
+        body = torch.cat(slabs, dim=1)[:, :self.cfg.num_symbols]
+        out = torch.cat([self.tp.tail.p1.expand(b, -1), body.reshape(b, -1)],
                         dim=1)
         return torch.view_as_real(out)
 
-    return fn
+    def eager(self, ts_padded, frame_idx0) -> torch.Tensor:
+        """The call op by op, with no graph."""
+        chunks = self._front(ts_padded, frame_idx0)
+        return self._back([self._slab(c.to(d), d).to(self.dev0)
+                           for c, d in zip(chunks, self.slots)])
+
+    def _segments(self, plan: TransmitPlan, cards: list) -> None:
+        """Capture the front, each other card's slabs and the back, each
+        on its card, with static inputs for what the peer copies bring."""
+        dev0 = self.dev0
+        self._windows = [torch.zeros(187 + pp.ts_bytes_in,
+                                     dtype=torch.uint8, device=dev0)
+                         for pp in plan.plps]
+        self._frame_idx = torch.zeros((), dtype=torch.int64, device=dev0)
+        ws = self._windows if len(self._windows) > 1 else self._windows[0]
+        mine = {d: [j for j, s in enumerate(self.slots) if s == d]
+                for d in cards}
+
+        def front():
+            chunks = self._front(ws, self._frame_idx)
+            # the first card's slabs as in ``eager``; the others' made
+            # contiguous, as ``.to`` makes them, for one peer copy a slab
+            return [self._slab(c, dev0) if self.slots[j] == dev0
+                    else c.contiguous() for j, c in enumerate(chunks)]
+
+        self._front_graph = Graph(front, dev0)
+        sent = self._front_graph.out
+        self._sends, self._returns, self._card_graphs = [], [], []
+        slabs = list(sent)
+        for d in cards[1:]:
+            ins = {j: torch.empty_like(sent[j], device=d) for j in mine[d]}
+            g = Graph(lambda ins=ins, d=d: {j: self._slab(x, d)
+                                            for j, x in ins.items()}, d)
+            self._card_graphs.append(g)
+            for j in mine[d]:
+                self._sends.append((ins[j], sent[j]))
+                slabs[j] = torch.empty_like(g.out[j], device=dev0)
+                self._returns.append((slabs[j], g.out[j]))
+        self._back_graph = Graph(lambda: self._back(slabs), dev0)
+        self.graphs = [self._front_graph, *self._card_graphs,
+                       self._back_graph]
+
+    def __call__(self, ts_padded, frame_idx0: int) -> torch.Tensor:
+        ws = (list(ts_padded) if isinstance(ts_padded, (list, tuple))
+              else [ts_padded])
+        if self._step is not None:
+            return self._step([w[None] for w in ws], [frame_idx0])[0]
+        if len(ws) != len(self._windows):
+            raise ValueError(f"{len(ws)} windows for "
+                             f"{len(self._windows)} PLPs")
+        for d, w in zip(self._windows, ws):
+            d.copy_(w)
+        self._frame_idx.fill_(frame_idx0)
+        self._front_graph.replay()
+        for dst, src in self._sends:
+            dst.copy_(src)
+        for g in self._card_graphs:
+            g.replay()
+        for dst, src in self._returns:
+            dst.copy_(src)
+        self._back_graph.replay()
+        with torch.cuda.device(self.dev0):
+            return self._back_graph.out.clone()

@@ -10,9 +10,9 @@ rows) and the complex one (``torch.fft``, every other geometry: 16K, 32K
 and odd guard intervals).  On a CUDA tensor the LDPC parity and the
 planar tail run the hand-written kernels of ``ops/ldpc.py`` and
 ``ops/ifft.py``; a CPU tensor takes their plain twins.  ``Transmitter``
-runs its step through ``compiled.CompiledStep``: on a CUDA device a
-captured CUDA graph replayed every step, the counterpart of the JAX
-step's ``jax.jit``.
+runs its step through ``compiled.CompiledStep`` as its one block: on a
+CUDA device a captured CUDA graph replayed every step, the counterpart of
+the JAX step's ``jax.jit``.
 """
 from __future__ import annotations
 
@@ -322,9 +322,10 @@ class Transmitter:
         self.plan = plan
         set_full_fp32_matmul()
         self.tensors = plan_tensors(plan, self.device, planar)
-        # the counterpart of the JAX step's jax.jit, captured here, once:
-        # every step is then a replay, the first included, and a step's
-        # launch counts are its own (the warm-up's fall to construction)
+        # the counterpart of the JAX step's jax.jit, one block, captured
+        # here, once: every step is then a replay, the first included, and
+        # a step's launch counts are its own (the warm-up's fall to
+        # construction)
         self._compiled = CompiledStep(self._step_fn, self.tensors, plan,
                                       self.device)
         self._carries = [np.zeros(187, dtype=np.uint8) for _ in plan.plps]
@@ -385,7 +386,7 @@ class Transmitter:
                 # slots sit at the plan's start phase
                 self.counters.sync_errors += check_ts_sync(
                     w[187:], phase=pp.bb.start_phase)
-        out = self._compiled(ws, self._frame_idx)
+        out = self._compiled([w[None] for w in ws], [self._frame_idx])[0]
         self._carries = [w[-187:].copy() for w in ws]
         self._frame_idx = ((self._frame_idx + self.plan.batch_frames)
                            % self.cfg.t2_frames)

@@ -220,10 +220,12 @@ def sharded_trace(cards: int = 1, steps: int = 10, n_mux: int = 8) -> None:
     cards in turn, 47 frames a block, against one ``Transmitter`` of the
     same frames a step on the first card.  Each runs ``steps`` fenced
     ``step_device`` steps on the host clock, then again under
-    ``torch.profiler`` for its device kernel and copy time; that device
-    time over the unprofiled wall time and the card count is the busy
-    share estimate a card."""
+    ``torch.profiler`` for its device kernel and copy time and the host's
+    graph launches and CUDA runtime calls a step
+    (``tools.host_api_calls``); that device time over the unprofiled wall
+    time and the card count is the busy share estimate a card."""
     from .parallel import ShardedTransmitter, make_mesh
+    from .tools import host_api_calls
     cfg = named_config("vv009_4kshort")
     b = min_batch_frames(cfg)
     devs = [torch.device("cuda", i) for i in range(cards)]
@@ -255,12 +257,15 @@ def sharded_trace(cards: int = 1, steps: int = 10, n_mux: int = 8) -> None:
         with torch.profiler.profile(activities=acts) as prof:
             prof_wall = fenced(step)
         kern, copy = _device_ms(prof)
+        calls = host_api_calls(prof, steps)
         print(f"vv009 x {n_mux} muxes, {label} ({frames} frames a step), "
               f"{steps} steps: wall {wall:.3f} ms = "
               f"{samples / wall / 1e3:.1f} Msamples/s; under torch.profiler "
               f"wall {prof_wall:.3f} ms, device kernels {kern:.3f} ms, "
               f"memory copies {copy:.3f} ms; busy share estimate a card "
-              f"{(kern + copy) / wall / n_cards:.3f}")
+              f"{(kern + copy) / wall / n_cards:.3f}; a step "
+              f"{calls['cudaGraphLaunch']:g} graph launches, host CUDA "
+              f"calls {calls}")
 
 
 def operators(name: str, batch: int) -> None:

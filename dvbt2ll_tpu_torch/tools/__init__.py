@@ -49,3 +49,22 @@ def kernel_launches() -> dict:
 def launches_since(before: dict) -> dict:
     now = kernel_launches()
     return {k: now[k] - before[k] for k in now}
+
+
+# the host's CUDA runtime calls that a step's launches are made of
+API_CALLS = ("cudaGraphLaunch", "cudaMemcpyAsync", "cudaLaunchKernel")
+
+
+def host_api_calls(prof, steps: int) -> dict:
+    """The host's CUDA runtime calls a step in a ``torch.profiler``
+    profile of ``steps`` steps: each of ``API_CALLS``, and ``all``, every
+    runtime call but the synchronisations that close a timed window.
+    All 0 where the profile holds no CUDA call (the CPU)."""
+    calls = {k: 0 for k in API_CALLS}
+    calls["all"] = 0
+    for e in prof.key_averages():
+        if e.key.startswith("cuda") and "Synchronize" not in e.key:
+            calls["all"] += e.count
+            if e.key in calls:
+                calls[e.key] += e.count
+    return {k: v / steps for k, v in calls.items()}

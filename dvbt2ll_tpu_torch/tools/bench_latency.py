@@ -67,7 +67,8 @@ def measure(name: str, device, iters: int = 50, calls: int = 200) -> dict:
     ws = [torch.from_numpy(np.concatenate(
         [np.zeros(187, np.uint8), synthetic_ts(n, seed=3 + i)])).to(device)
         for i, n in enumerate(tx.bytes_per_step_per_plp)]
-    r = _readings(lambda: tx._compiled(ws, 0), device, iters, calls)
+    rows = [w[None] for w in ws]   # the compiled step's one block
+    r = _readings(lambda: tx._compiled(rows, [0]), device, iters, calls)
     eager = _readings(lambda: tx._step_fn(
         tx.tensors, ws if len(ws) > 1 else ws[0], 0), device, iters, calls)
     fd_ms = cfg.frame_duration * 1e3

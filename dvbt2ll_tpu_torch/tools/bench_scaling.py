@@ -7,8 +7,10 @@ Three parts, each under its own time limit:
 
   A. Strong scaling: the same ``frames`` vv009 frames (drift mode) to a
      ``ShardedTransmitter`` over 1, 2, 4 and 8 frame slots of
-     ``--device`` (slots of one card share its stream), wall ms a step
-     and speed-up.  The blocks are held bit for bit: each against the
+     ``--device`` (slots of one card share its stream and are one
+     compiled step, one CUDA graph), wall ms a step and speed-up; then
+     ``API_STEPS`` more steps under ``torch.profiler`` for the host's
+     graph launches and CUDA runtime calls a step (``host_api_calls``).  The blocks are held bit for bit: each against the
      single-chain ``Transmitter`` stepping the same halo window at the
      same per-call batch (the JAX package's invariant), and shard 0,
      which starts at TS phase 0 in every layout, against the first slot
@@ -18,8 +20,9 @@ Three parts, each under its own time limit:
      packet-aligned shard is 47 frames).
   B. Copy audit, the counterpart of the JAX collective audit of compiled
      HLO: one 8-slot sharded step under ``torch.profiler``, its memory
-     copies between two different devices counted (peer-to-peer).  The
-     count must be 0; on one card it is 0 by construction.
+     copies between two different devices counted (peer-to-peer), and
+     the host's graph launches and CUDA runtime calls.  The count of peer
+     copies must be 0; on one card it is 0 by construction.
   C. Multi-process efficiency: the same step as 1 process x 8 slots
      against 2 processes x 4 slots joined by ``torch.distributed`` (gloo,
      a localhost rendezvous, ``dryrun.run_workers``), wall time over the
@@ -45,11 +48,12 @@ from ..dryrun import N_PROCS, SLOTS_PER_PROC, process_group, run_workers
 from ..io import synthetic_ts
 from ..parallel import ShardedTransmitter, halo_windows, make_mesh
 from ..pipeline import Transmitter
-from . import device_line, kernel_launches, launches_since, open_device
-from . import sync
+from . import device_line, host_api_calls, kernel_launches, launches_since
+from . import open_device, sync
 
 TOTAL_FRAMES = 16
 STEPS = 10
+API_STEPS = 3          # profiled steps a slot count for the host's calls
 LIMITS = {"A": 300.0, "B": 120.0, "C": 300.0}   # seconds a part
 
 
@@ -83,6 +87,13 @@ def _sharded(slots: list, frames: int):
 def _sync(devices) -> None:
     for d in {torch.device(d) for d in devices}:
         sync(d)
+
+
+def _activities(dev: torch.device) -> list:
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return acts
 
 
 def _timed(stx, ts, steps: int) -> float:
@@ -119,11 +130,18 @@ def strong(device, slot_counts=(1, 2, 4, 8), frames: int = TOTAL_FRAMES,
                                f"differ from the first slot count's")
         before = kernel_launches()
         dt = _timed(stx, ts, steps)
+        launches = launches_since(before)
+        with torch.profiler.profile(
+                activities=_activities(torch.device(device))) as prof:
+            _timed(stx, ts, API_STEPS)
+        calls = host_api_calls(prof, API_STEPS)
         rows.append({"slots": n, "frames_per_slot": per,
                      "wall_ms_per_step": dt / steps * 1e3,
                      "msamp_s": steps * frames * cfg.samples_per_frame
                      / dt / 1e6,
-                     "launches": launches_since(before)})
+                     "launches": launches,
+                     "graph_launches_per_step": calls["cudaGraphLaunch"],
+                     "api_calls_per_step": calls})
     for r in rows:
         r["speedup"] = rows[0]["wall_ms_per_step"] / r["wall_ms_per_step"]
     return rows
@@ -141,18 +159,17 @@ def copy_audit(device, slots: int = 8, frames: int = TOTAL_FRAMES) -> dict:
                           frames)
     stx.step_device(ts)
     _sync(cards)
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=_activities(dev)) as prof:
         stx.step_device(ts)
         _sync(cards)
     events = prof.key_averages()
     memcpy = {e.key: e.count for e in events if e.key.startswith("Memcpy")}
     peer = sum(c for k, c in memcpy.items() if "PtoP" in k)
+    calls = host_api_calls(prof, 1)
     return {"slots": slots, "cards": len(cards) if dev.type == "cuda" else 0,
             "device_us": sum(e.self_device_time_total for e in events),
-            "memcpy": memcpy, "peer_copies": peer}
+            "memcpy": memcpy, "peer_copies": peer,
+            "graph_launches": calls["cudaGraphLaunch"], "api_calls": calls}
 
 
 def _rate(cfg, frames: int, steps: int, dt: float) -> float:

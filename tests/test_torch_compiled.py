@@ -175,15 +175,16 @@ def test_load_state_mid_stream_stages_the_restored_frame_index(name):
 
 @pytest.mark.parametrize("mux,slots", [(1, 4), (2, 4)])
 def test_sharded_cpu_slots_equal_the_sequential_chain(mux, slots):
-    """``ShardedTransmitter`` on CPU slots, one ``CompiledStep`` a block:
-    every block over three steps bit-identical to a sequential
-    ``Transmitter`` of the same per-call batch, whose frame index runs
-    through the shards (odd batch: it alternates)."""
+    """``ShardedTransmitter`` on CPU slots, one ``CompiledStep`` over
+    every block of the device: every block over three steps bit-identical
+    to a sequential ``Transmitter`` of the same per-call batch, whose
+    frame index runs through the shards (odd batch: it alternates)."""
     cfg = named_config("vv009_4kshort")
     n_mux = 2
     stx = ShardedTransmitter(cfg, make_mesh(["cpu"] * slots, mux=mux),
                              n_mux=n_mux, frames_per_shard=_BATCH, **_DRIFT)
-    assert len(stx._steps) == n_mux * stx.frame_shards
+    (step,) = stx._steps.values()
+    assert step.blocks == n_mux * stx.frame_shards
     seqs = [_tx("vv009_4kshort") for _ in range(n_mux)]
     n = seqs[0].bytes_per_step
     for k in range(3):
@@ -206,14 +207,19 @@ def test_compiled_step_on_the_cpu():
     assert isinstance(step, CompiledStep) and step._graph is None
     assert step.capture_s == 0 and step.pool_bytes == 0
     (ws, _), = _windows(tx, 1, seed=60)
+    rows = [w[None] for w in ws]   # the transmitter's one block
     with pytest.raises(ValueError, match="windows for"):
-        step.stage(ws[:1], 0)
+        step.stage(rows[:1], [0])
     with pytest.raises(ValueError, match="window of shape"):
-        step.stage([ws[0][1:], ws[1]], 0)
+        step.stage([rows[0][:, 1:], rows[1]], [0])
+    with pytest.raises(ValueError, match="window of shape"):
+        step.stage(ws, [0])
+    with pytest.raises(ValueError, match="frame indices"):
+        step.stage(rows, [0, 1])
     with pytest.raises(TypeError):
-        step.stage([w.astype(np.int32) for w in ws], 0)
-    step.stage(ws, 1)
+        step.stage([w.astype(np.int32) for w in rows], [0])
+    step.stage(rows, [1])
     assert int(step.frame_idx) == 1 and step.frame_idx.dtype == torch.int64
-    for d, w in zip(step.windows, ws):
+    for d, w in zip(step.windows, rows):
         assert np.array_equal(d.numpy(), w)
-    assert torch.equal(step.replay(), _eager(tx, ws, 1))
+    assert torch.equal(step.replay()[0], _eager(tx, ws, 1))

@@ -328,16 +328,43 @@ def test_hetero_multimux_on_card(cuda):
             assert all(torch.equal(g, r) for g, r in zip(g_row, r_row))
 
 
-def test_symbol_sharded_on_card(cuda):
-    """32k_extended, 1 frame over 4 slots, bit-identical to the whole
-    complex step (cuFFT's transform of a slab is the whole's)."""
+def _symbol_sharded_vs_eager(slots, graphs):
+    """32k_extended, 1 frame over ``slots``: the compiled call (``graphs``
+    CUDA graphs) bit-identical to its eager form and to the whole complex
+    step (cuFFT's transform of a slab is the whole's) at frame indices 0
+    and 1, one LDPC launch a call."""
     plan = build_plan(named_config("32k_extended"), 1, strict=False)
-    fn = grids_symbol_sharded(plan, make_mesh([cuda] * 4))
+    fn = grids_symbol_sharded(plan, make_mesh(slots))
+    assert len(fn.graphs) == graphs and fn.pool_bytes > 0
+    dev = fn.dev0
     padded = torch.from_numpy(np.concatenate(
         [np.zeros(187, np.uint8),
-         synthetic_ts(plan.ts_bytes_in, seed=40)])).to(cuda)
-    assert torch.equal(fn(padded, 0), transmit_step_iq(
-        plan_tensors(plan, cuda, False), padded, 0))
+         synthetic_ts(plan.ts_bytes_in, seed=40)])).to(dev)
+    for idx in (0, 1):
+        before = _launches()
+        got = fn(padded, idx)
+        assert _launches() == (before[0] + 1, before[1])
+        assert got.device == dev
+        assert torch.equal(got, fn.eager(padded, idx)), idx
+        assert torch.equal(got, transmit_step_iq(
+            plan_tensors(plan, dev, False), padded, idx)), idx
+
+
+def test_symbol_sharded_on_card(cuda):
+    """4 slots of one card: one graph."""
+    _symbol_sharded_vs_eager([cuda] * 4, 1)
+
+
+def test_symbol_sharded_over_cards(cuda):
+    """4 slots over the cards in turn: a graph a card segment (the front
+    and the back on the first card, one graph on each other card), the
+    slabs moved by peer copies between them."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    cards = [torch.device("cuda", i) for i in range(n)]
+    slots = [cards[i % n] for i in range(4)]
+    _symbol_sharded_vs_eager(slots, len(set(slots)) + 1)
 
 
 def test_bench_on_card(cuda):
@@ -537,14 +564,31 @@ def test_executor_on_the_compiled_step_matches_eager(cuda):
         assert np.array_equal(g, w.reshape(47, -1).view(np.complex64)), k
 
 
+def _graph_launches(stx, ts) -> tuple:
+    """One ``step_device`` of ``stx`` under torch.profiler: the host's
+    graph launches and the peer-to-peer copies."""
+    from dvbt2ll_tpu_torch.tools import host_api_calls
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        stx.step_device(ts)
+        for d in stx.mesh.local_devices():
+            torch.cuda.synchronize(d)
+    peer = [e.key for e in prof.key_averages() if "PtoP" in e.key]
+    return host_api_calls(prof, 1)["cudaGraphLaunch"], peer
+
+
 def test_sixteen_compiled_slots_of_one_card(cuda):
     """BASELINE config 5: 8 vv009 muxes strict at 47 frames a block over
-    16 slots of the card, t2_frames + 1 steps, every block a compiled
-    step, bit-identical to the eager step on its halo window and frame
-    index, both kernels launched 16 times a step."""
+    16 slots of the card, t2_frames + 1 steps, all 16 blocks one compiled
+    step (one graph launch a step), each block bit-identical to the eager
+    step on its halo window and frame index, both kernels launched 16
+    times a step."""
     cfg = vv009_config()
     stx = ShardedTransmitter(cfg, make_mesh([cuda] * 16, mux=8), n_mux=8,
                              frames_per_shard=47)
+    (step,) = stx._steps.values()
+    assert step.blocks == 16 and step._graph is not None
     carries = np.zeros((8, 187), np.uint8)
     for k in range(cfg.t2_frames + 1):
         ts = np.stack([synthetic_ts(stx.bytes_per_step_per_mux,
@@ -561,3 +605,21 @@ def test_sixteen_compiled_slots_of_one_card(cuda):
                 want = stx._step_fn(stx.tensors[dev], torch.from_numpy(
                     windows[c, s]).to(dev), idx)
                 assert torch.equal(out[c][s], want), (k, c, s)
+    assert _graph_launches(stx, ts) == (1, [])
+
+
+def test_mesh_over_cards_is_one_graph_a_card(cuda):
+    """A (2, 2) vv009 mesh over the cards in turn: one compiled step a
+    card, one graph launch a card in a profiled step and no peer copy,
+    the blocks bit-identical to the sequential Transmitter."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    cards = [torch.device("cuda", i) for i in range(n)]
+    slots = [cards[i % n] for i in range(4)]
+    _sharded_vs_sequential(slots)
+    stx = _drift_sharded(vv009_config(), slots, 2)
+    assert set(stx._steps) == set(slots)
+    ts = np.stack([synthetic_ts(stx.bytes_per_step_per_mux, seed=13 + c)
+                   for c in range(2)])
+    assert _graph_launches(stx, ts) == (len(set(slots)), [])
