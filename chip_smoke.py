@@ -11,12 +11,14 @@ imports no JAX.  Phases, each of which raises on failure:
    in parallel) with what ptxas reports;
 2. the LDPC codeword kernel against its plain torch twin, on the card,
    bit for bit, and the parity against the numpy oracle, on the vv009
-   table (2048 frames, one batch-256 step) and the 8k_normal table (512
+   table (2048 frames, one batch-256 step; 6016 frames, one step of
+   BASELINE config 5's 16 blocks batched) and the 8k_normal table (512
    frames), timed beside its plain twin and its bound;
 3. the fused OFDM tail kernel (P1, then each symbol's 4-step IFFT and
    guard interval as final I/Q) against its plain twin on the same grids
    and P1: P1 bit for bit, the rest above 120 dB SNR, at vv009 and
-   8k_normal at batch 256, timed beside its plain twin, its bound and
+   8k_normal at batch 256 and vv009 at config 5's 752 frames, timed
+   beside its plain twin, its bound and
    ``torch.fft.ifft`` on the same transforms, and every other planar
    (fft, gi) shape;
 4. all seventeen reference-binary goldens (``tests/golden_ref``) through
@@ -57,9 +59,11 @@ imports no JAX.  Phases, each of which raises on failure:
    valid-stream mode, a (mux 8, frame 2) ``ShardedTransmitter`` over 16
    slots of the card, 47 frames a shard, strict, 2 steps of 752 frames:
    each mux bit-identical to its own strict ``Transmitter`` of 47 frames
-   streamed over 4 steps, both kernels launched 16 times a step, and the
-   aggregate rate beside one ``Transmitter`` of 752 frames (information,
-   not a claim); (b) a heterogeneous ``MultiMuxTransmitter``, a vv009
+   streamed over 4 steps, both kernels launched once a card a step (the
+   card's 16 blocks are one batched call, the counterpart of the JAX
+   ``shard_fn``'s ``jax.vmap``), and the aggregate rate beside one
+   ``Transmitter`` of 752 frames (information, not a claim); (b) a
+   heterogeneous ``MultiMuxTransmitter``, a vv009
    group of 2 muxes (planar tail) beside a 32k_extended group (complex
    tail, drift mode), each channel bit-identical to its standalone
    ``ShardedTransmitter`` and a checkpoint round trip reproducing the
@@ -85,9 +89,11 @@ imports no JAX.  Phases, each of which raises on failure:
    graph's pool and the peak memory each reserved, and on the card's
    clock a replay, the eager step and the output's copy; batch-1 latency
    compiled and eager (``bench_latency.measure``); and BASELINE config 5
-   (8 vv009 muxes over 16 slots of the card, one graph) block by block
-   against the eager step for t2_frames + 1 steps, with both aggregate
-   rates, the graph launches a step under torch.profiler and the pool;
+   (8 vv009 muxes over 16 slots of the card, one graph of one batched
+   call, each kernel launched once a step) block by block against the
+   one-block eager step for t2_frames + 1 steps, bit for bit, with both
+   aggregate rates, the graph launches a step under torch.profiler and
+   the pool;
 10. the measuring entry points, each a subprocess on the card whose
    output starts with the card line, each JSON line printed:
    ``tools.roofline`` at batch 256 on vv009, 8k_normal and 32k_extended
@@ -139,12 +145,21 @@ GOLDENS = ("vv009_4kshort", "8k_normal", "hieff_4k", "inband_2k",
            # the complex tail
            "32k_extended", "32k_papr_tr", "16k_l1qpsk_both",
            "t2lite_16k_t2gi", "t2lite_8k_t2gi_miso")
-LDPC_CASES = (("vv009_4kshort", 8 * BATCH), ("8k_normal", 512))
+# BASELINE config 5 on one card: 16 blocks of 47 vv009 frames, one batch
+# of 752 frames a step (each kernel launched once a step)
+CONFIG5_FRAMES = 16 * 47
+# (key, config, LDPC frames): vv009 at batch 256 (8 a T2 frame), 8k_normal,
+# and vv009 at config 5's batch
+LDPC_CASES = (("vv009_4kshort", "vv009_4kshort", 8 * BATCH),
+              ("8k_normal", "8k_normal", 512),
+              ("config5", "vv009_4kshort", 8 * CONFIG5_FRAMES))
 TAIL_DB = 120.0        # tail kernel vs its twin: both float32, sums reordered
-# ((B, S), fft, gi, name when timed): vv009 and 8k_normal at batch 256, then
-# the other planar geometries for correctness
+# ((B, S), fft, gi, key when timed): vv009 and 8k_normal at batch 256 and
+# vv009 at config 5's batch, then the other planar geometries for
+# correctness
 TAIL_CASES = (((BATCH, 7), 4096, 128, "vv009_4kshort"),
               ((BATCH, 10), 8192, 512, "8k_normal"),
+              ((CONFIG5_FRAMES, 7), 4096, 128, "config5"),
               ((16, 8), 1024, 128, None), ((16, 8), 1024, 256, None),
               ((16, 8), 2048, 256, None), ((16, 8), 4096, 1024, None),
               ((16, 8), 8192, 2048, None))
@@ -310,7 +325,7 @@ def ldpc_phase(torch, dev, rng) -> dict:
     from dvbt2ll_tpu_torch.tables.ldpc import encode_ref, qc_entries
     from dvbt2ll_tpu_torch.tools.roofline import bound
     times = {}
-    for name, frames in LDPC_CASES:
+    for key, name, frames in LDPC_CASES:
         cfg = named_config(name)
         sched = ldpc_schedule(
             qc_entries(cfg.frame_size, cfg.code_rate, cfg.q_ldpc), cfg.nbch,
@@ -339,8 +354,8 @@ def ldpc_phase(torch, dev, rng) -> dict:
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms "
               f"({plain_ms / ms:.2f}x); bound {bound_ms:.4f} ms "
               f"({by}), share of bound {bound_ms / ms:.3f}")
-        times[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
-                           bound_ms=bound_ms, bound_by=by, library_ms=None)
+        times[key] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=by, library_ms=None)
     return times
 
 
@@ -989,10 +1004,12 @@ def sharded_phase(torch, slots, label: str) -> tuple:
     dt = time.perf_counter() - t0
     counts = launches()
     blocks = SHARD_MUX * SHARD_FRAME
-    want = {"ldpc_parity": blocks * SHARD_STEPS,
-            "ifft_gi": blocks * SHARD_STEPS}
+    # a card's blocks are one batched call: each kernel once a card a step
+    want = {"ldpc_parity": len(devices) * SHARD_STEPS,
+            "ifft_gi": len(devices) * SHARD_STEPS}
     require(counts == want, f"{label}: launches {counts} in {SHARD_STEPS} "
-            f"steps of {blocks} blocks, expected {want}")
+            f"steps of {blocks} blocks on {len(devices)} card(s), expected "
+            f"{want}")
 
     for c in range(SHARD_MUX):
         tx = Transmitter(cfg, b, strict=True, device=mesh.devices[c, 0])
@@ -1037,7 +1054,8 @@ def sharded_phase(torch, slots, label: str) -> tuple:
           f"({frames * cfg.samples_per_frame * 8 / 1e6:.1f} MB of IQ a "
           f"step): every mux bit-identical to its own strict Transmitter "
           f"of {b} frames over {SHARD_STEPS * SHARD_FRAME} steps; launches "
-          f"{counts} ({blocks} of each kernel a step); aggregate "
+          f"{counts} (one of each kernel a card a step for {blocks} "
+          f"blocks); aggregate "
           f"{rate:.2f} Msamples/s ({SHARD_STEPS} steps in {dt:.4f} s, host "
           f"staging included) beside one Transmitter of {frames} frames "
           f"at {one_rate:.2f} Msamples/s (information, not a claim)")
@@ -1097,7 +1115,8 @@ def multimux_phase(torch, dev, tmp: str) -> dict:
     out2 = mm.step_device(steps[1])
     sync(torch, [dev])
     counts = {"multimux": launches()}
-    want = {"ldpc_parity": 2 * (4 + 2), "ifft_gi": 2 * 4}
+    # each group's blocks on the card are one batched call
+    want = {"ldpc_parity": 2 * (1 + 1), "ifft_gi": 2 * 1}
     require(counts["multimux"] == want, f"multimux: launches "
             f"{counts['multimux']} in 2 steps, expected {want}")
 
@@ -1115,8 +1134,8 @@ def multimux_phase(torch, dev, tmp: str) -> dict:
         counts[name] = launches()
         same_blocks(torch, out1[i], r1, f"{name} step 1")
         same_blocks(torch, out2[i], r2, f"{name} step 2")
-    require(counts["multimux_vv009"] == {"ldpc_parity": 8, "ifft_gi": 8}
-            and counts["multimux_32k"] == {"ldpc_parity": 4, "ifft_gi": 0},
+    require(counts["multimux_vv009"] == {"ldpc_parity": 2, "ifft_gi": 2}
+            and counts["multimux_32k"] == {"ldpc_parity": 2, "ifft_gi": 0},
             f"multimux channels: launches {counts}")
 
     mm2 = MultiMuxTransmitter(specs, devices=slots)
@@ -1333,7 +1352,7 @@ def compiled_path(torch, dev, name: str, batch, strict: bool) -> dict:
     replay_ms = cuda_ms(step._graph.replay)
     eager_dev_ms = cuda_ms(lambda: tx._step_fn(
         tx.tensors, _one([w[0] for w in step.windows]), step.frame_idx[0]))
-    copy_ms = cuda_ms(lambda: torch.stack(step._outs))
+    copy_ms = cuda_ms(step._out.clone)
     print(f"{label}: {COMPILED_CHECK} steps (frame indices {indices}) "
           f"bit-identical to the eager step; device {replay_ms:.4f} ms a "
           f"replay, {eager_dev_ms:.4f} eager, output copy {copy_ms:.4f} "
@@ -1351,11 +1370,12 @@ def compiled_path(torch, dev, name: str, batch, strict: bool) -> dict:
 def compiled_sharded(torch, dev) -> dict:
     """BASELINE config 5 through the compiled mesh step: vv009 as
     SHARD_MUX muxes, strict at 47 frames a block, over a (SHARD_MUX,
-    SHARD_FRAME) mesh of 16 slots of the card, one graph for all 16
-    blocks, t2_frames + 1 steps, every block bit-identical to the eager
-    step on its halo window and frame index; then the aggregate rate of
-    the compiled step beside the eager blocks', and one step under
-    torch.profiler: one graph launch, and the host's CUDA calls."""
+    SHARD_FRAME) mesh of 16 slots of the card, one graph of one batched
+    call for all 16 blocks (each kernel launched once a step),
+    t2_frames + 1 steps, every block bit-identical to the one-block
+    eager step on its halo window and frame index; then the aggregate
+    rate of the compiled step beside the eager blocks', and one step
+    under torch.profiler: one graph launch, and the host's CUDA calls."""
     from torch.profiler import ProfilerActivity, profile
     from dvbt2ll_tpu_torch import (ShardedTransmitter, make_mesh,
                                    min_batch_frames, synthetic_ts,
@@ -1409,9 +1429,8 @@ def compiled_sharded(torch, dev) -> dict:
     ms, counts = timed(stx.step_device, first)
     eager_ms, _ = timed(eager_step, first + 1 + SHARD_STEPS)
     blocks = SHARD_MUX * SHARD_FRAME
-    require(counts == {"ldpc_parity": blocks * SHARD_STEPS,
-                       "ifft_gi": blocks * SHARD_STEPS},
-            f"compiled sharded: launches {counts}")
+    require(counts == {"ldpc_parity": SHARD_STEPS, "ifft_gi": SHARD_STEPS},
+            f"compiled sharded: launches {counts} in {SHARD_STEPS} steps")
     samples = SHARD_MUX * stx.frames_per_step * cfg.samples_per_frame
     steps = list(stx._steps.values())
     require([st.blocks for st in steps] == [blocks],
@@ -1619,7 +1638,8 @@ def tools_phase(torch, tail_times: dict) -> dict:
             f"bench_scaling: copy audit {s['copy_audit']}")
     total = {"ldpc_parity": 0, "ifft_gi": 0}
     for row in s["strong"]:
-        n = row["slots"] * s["steps"]
+        # the slots of one card are one batched call: once a step
+        n = s["steps"]
         require(row["launches"] == {"ldpc_parity": n, "ifft_gi": n},
                 f"bench_scaling: {row}")
         total = {k: total[k] + row["launches"][k] for k in total}
@@ -1694,8 +1714,9 @@ def main() -> int:
 
     def row(name, source, replaces, times, **extra):
         """One kernel's entry: the vv009 numbers under the contract's
-        keys, the 8k_normal ones with that suffix."""
-        main, k8 = times["vv009_4kshort"], times["8k_normal"]
+        keys, the 8k_normal ones and those at BASELINE config 5's batch
+        (its one launch a step, phase 9b) with those suffixes."""
+        main = times["vv009_4kshort"]
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, **extra,
                  "launches": main_path[name],
@@ -1704,12 +1725,15 @@ def main() -> int:
                  "max_abs_err": main["err"]}
         for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
             entry[key] = main[key]
-        for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                    "bound_by", "library_ms"):
-            entry[f"{key}_8k_normal"] = k8["err" if key == "max_abs_err"
-                                           else key]
+        for suffix in ("8k_normal", "config5"):
+            for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms"):
+                entry[f"{key}_{suffix}"] = times[suffix][
+                    "err" if key == "max_abs_err" else key]
         entry["launches_per_step_8k_normal"] = (paths["8k_normal"][name]
                                                 // (1 + STEPS_8K))
+        entry["launches_per_step_config5"] = (
+            paths["compiled_sharded_16"][name] // SHARD_STEPS)
         return entry
 
     print(f"chip_smoke: all phases passed in "

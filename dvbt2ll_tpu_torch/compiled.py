@@ -6,34 +6,37 @@ and, over the blocks of one device, of the ``ShardedTransmitter``'s
 ``Graph`` captures a function once on a CUDA device as a
 ``torch.cuda.CUDAGraph`` and replays it.  ``CompiledStep`` runs a step
 function (``pipeline.select_step_iq``) over ``blocks`` blocks of one plan
-on one device: on a card all of them are one graph, so the whole step of
-every block (both hand-written kernels, the cuBLAS products and the cuFFT
-transforms included) is one launch from the host.  The single-chain
-``Transmitter`` is the case of one block.  The static inputs are one
-(blocks, 187 + fresh bytes) uint8 window a PLP, row i for block i, and a
-(blocks,) int64 frame index, element i block i's first T2 frame index,
-which the frame builder reads at every replay (the JAX step's traced
-``jnp.int32(frame_idx)``).
+on one device as one call: the step function takes the blocks' windows
+stacked, as the JAX ``shard_fn`` takes them under ``jax.vmap(one_mux)``,
+and runs all their frames as one batch, so each kernel launches once a
+PLP for every block.  On a card that call is one graph, so the whole step
+of every block (both hand-written kernels, the cuBLAS products and the
+cuFFT transforms included) is one launch from the host.  The
+single-chain ``Transmitter`` is the case of one block.  The static inputs
+are one (blocks, 187 + fresh bytes) uint8 window a PLP, row i for block
+i, and a (blocks,) int64 frame index, element i block i's first T2 frame
+index, which the frame builder reads at every replay (the JAX step's
+traced ``jnp.int32(frame_idx)``).
 
 A step stages its inputs through one pinned host buffer a PLP and one for
 the frame indices, each reaching its static input by one asynchronous
 copy (``host_inputs`` hands the pinned rows to a caller that writes them
-in place), replays, and returns one copy of the blocks' outputs stacked,
-made on the device.  The next replay overwrites the graph's static
-outputs, which lie in its private memory pool, where
-``Tensor.record_stream`` protects nothing; the stacked copy comes from
-the caching allocator, so a tensor that a step returns, and each block's
-view of it, is the caller's and no later step writes to it.
+in place), replays, and returns one copy of the (blocks, B, samples, 2)
+output, made on the device.  The next replay overwrites the graph's
+static output, which lies in its private memory pool, where
+``Tensor.record_stream`` protects nothing; the copy comes from the
+caching allocator, so a tensor that a step returns, and each block's view
+of it, is the caller's and no later step writes to it.
 
 The kernel wrappers count their launches in Python, which a replay does
 not run.  A capture launches nothing, so its increase of each count is
 taken back and added at every replay instead: the counts read as in eager
 mode.
 
-On the CPU ``CompiledStep`` runs the step function on each block's row of
-the same static inputs, with no graph, and the host rows are the static
-inputs themselves.  On a CUDA device a capture that fails raises; there is
-no eager fallback.
+On the CPU ``CompiledStep`` makes the same call on the same static
+inputs, with no graph, and the host rows are the static inputs
+themselves.  On a CUDA device a capture that fails raises; there is no
+eager fallback.
 """
 from __future__ import annotations
 
@@ -94,9 +97,9 @@ class Graph:
 
 class CompiledStep:
     """``step_fn(tensors, windows, frame_idx0)`` for one plan over
-    ``blocks`` blocks on ``device``, in block order: one CUDA graph
-    captured at construction, or on the CPU the eager calls on the same
-    static inputs.
+    ``blocks`` blocks on ``device``, one call on the stacked windows: one
+    CUDA graph captured at construction, or on the CPU the eager call on
+    the same static inputs.
 
     ``capture_s`` is the warm-up and capture time on the host clock and
     ``pool_bytes`` the device memory that the graph's private pool
@@ -127,19 +130,16 @@ class CompiledStep:
                                      pin_memory=True)
         self._staged = torch.cuda.Event()
         self._graph = Graph(self._run, self.device)
-        self._outs = self._graph.out
+        self._out = self._graph.out
         self.capture_s = self._graph.capture_s
         self.pool_bytes = self._graph.pool_bytes
 
-    def _run(self) -> list:
-        """The step function on each block's row of the static inputs."""
-        outs = []
-        for i in range(self.blocks):
-            ws = [w[i] for w in self.windows]
-            outs.append(self._step_fn(self._tensors,
-                                      ws if len(ws) > 1 else ws[0],
-                                      self.frame_idx[i]))
-        return outs
+    def _run(self) -> torch.Tensor:
+        """The step function on the static inputs, every block at once:
+        (blocks, B, samples, 2)."""
+        ws = self.windows
+        return self._step_fn(self._tensors, ws if len(ws) > 1 else ws[0],
+                             self.frame_idx)
 
     def host_inputs(self) -> tuple:
         """The host rows of the next step, to write in place: one
@@ -191,13 +191,13 @@ class CompiledStep:
 
     def replay(self) -> torch.Tensor:
         """The step on the staged inputs: (blocks, B, samples, 2) f32 I/Q,
-        block i from row i of the static inputs; one stacked copy, which
-        no later step writes."""
+        block i from row i of the static inputs; on a card a copy of the
+        graph's output, which no later step writes."""
         if self._graph is None:
-            return torch.stack(self._run())
+            return self._run()
         self._graph.replay()
         with torch.cuda.device(self.device):
-            return torch.stack(self._outs)
+            return self._out.clone()
 
     def __call__(self, windows, frame_idx) -> torch.Tensor:
         self.stage(windows, frame_idx)

@@ -18,12 +18,14 @@ the invariant is that each block's window goes from the host to its
 slot's device, its step runs there, and its output stays there.  Host
 gathers (``__call__``, ``stream``) come after the step.
 
-A slot may repeat a device: sixteen slots of one card run sixteen blocks
-in turn on that card's current stream, which is how one card serves
-BASELINE config 5 (8+ independent channels).  All the blocks of one
-device are one ``compiled.CompiledStep``, on a card one CUDA graph: the
-counterpart of the JAX package's one ``jax.jit(_shard_map(...))`` program
-over the mesh, a program a card.  Under a
+A slot may repeat a device: sixteen slots of one card are sixteen blocks
+on that card, which is how one card serves BASELINE config 5 (8+
+independent channels).  All the blocks of one device are one
+``compiled.CompiledStep``, one call of the step function on the blocks'
+stacked windows (the counterpart of ``jax.vmap(one_mux)`` in the JAX
+``shard_fn``: each kernel launches once a PLP a device), on a card one
+CUDA graph: the counterpart of the JAX package's one
+``jax.jit(_shard_map(...))`` program over the mesh, a program a card.  Under a
 ``torch.distributed`` process group the mesh spans every process, each
 process runs only the blocks of the slots it owns, and the step still
 calls no collective (the counterpart of ``_mesh_put`` under
@@ -46,7 +48,8 @@ from ..compiled import CompiledStep, Graph
 from ..config import T2Config
 from ..convert import plan_tensors
 from ..ops.ifft import set_full_fp32_matmul
-from ..pipeline import complex_grids, select_step_iq, symbols_with_gi
+from ..pipeline import (block_view, complex_grids, select_step_iq,
+                        symbols_with_gi)
 from ..plan import TransmitPlan, build_plan
 
 
@@ -158,11 +161,11 @@ def _write_window(dst: np.ndarray, carry: np.ndarray, stream: np.ndarray,
 class ShardedTransmitter:
     """N independent DVB-T2 muxes, frames sharded over a device mesh.
 
-    Each slot runs the single-chain step (``pipeline.select_step_iq``) on
-    its (mux-slice, frame-slice) blocks, on its own device.  The blocks
-    of one device are one ``compiled.CompiledStep`` (on a card one
-    captured graph), in slot order; no block's data moves to another
-    device inside the step.
+    Each slot's (mux-slice, frame-slice) blocks run the single-chain step
+    (``pipeline.select_step_iq``) on its own device.  The blocks of one
+    device, in slot order, are one ``compiled.CompiledStep``: one call
+    of the step over their stacked windows (on a card one captured
+    graph); no block's data moves to another device inside the step.
     """
 
     def __init__(self, cfg: T2Config, mesh: DeviceMesh, n_mux: int = 1,
@@ -230,9 +233,10 @@ class ShardedTransmitter:
         row of its device's pinned staging and sent with one copy a PLP
         a device, then each device's step is one replay, before any result
         is read.  Returns ``out[c][s]``, for mux c and frame shard s, the
-        f32 (B_local, samples, 2) I/Q tensor on that block's device (a
-        view of its device's stacked output), or None where another
-        process owns the slot."""
+        f32 (B_local, samples, 2) I/Q tensor on that block's device (row
+        j of its device's (blocks, B_local, samples, 2) output, as the
+        JAX ``shard_fn`` hands out its ``vmap``'s rows), or None where
+        another process owns the slot."""
         cfg = self.cfg
         if (self._step_no and not self._allow_phase_drift
                 and not self._phase_invariant):
@@ -451,7 +455,8 @@ class SymbolShardedStep:
 
     def _front(self, ts_padded, frame_idx0) -> tuple:
         """FEC, mapper and frame builder, the symbol axis padded to the
-        slot count: one (B, S_pad / n, fft) slab a slot."""
+        slot count: one (B, S_pad / n, fft) slab a slot (B counts every
+        block's frames)."""
         cfg, n = self.cfg, len(self.slots)
         grids = complex_grids(self.tp, ts_padded, frame_idx0)
         b = grids.shape[0]
@@ -470,10 +475,12 @@ class SymbolShardedStep:
         return torch.view_as_real(out)
 
     def eager(self, ts_padded, frame_idx0) -> torch.Tensor:
-        """The call op by op, with no graph."""
+        """The call op by op, with no graph; like the step functions it
+        also takes (blocks, ·) windows and a (blocks,) frame index."""
         chunks = self._front(ts_padded, frame_idx0)
-        return self._back([self._slab(c.to(d), d).to(self.dev0)
-                           for c, d in zip(chunks, self.slots)])
+        return block_view(ts_padded, self._back(
+            [self._slab(c.to(d), d).to(self.dev0)
+             for c, d in zip(chunks, self.slots)]))
 
     def _segments(self, plan: TransmitPlan, cards: list) -> None:
         """Capture the front, each other card's slabs and the back, each

@@ -13,6 +13,14 @@ planar tail run the hand-written kernels of ``ops/ldpc.py`` and
 runs its step through ``compiled.CompiledStep`` as its one block: on a
 CUDA device a captured CUDA graph replayed every step, the counterpart of
 the JAX step's ``jax.jit``.
+
+The step functions take one window a PLP, (187 + fresh,) uint8, and an
+int or 0-d frame index, and return (B, samples, 2); or a (blocks, 187 +
+fresh) stack of windows a PLP and a (blocks,) frame index, and return
+(blocks, B, samples, 2), row i bit-identical to the call on row i: the
+counterpart of ``jax.vmap`` over the JAX step in the mesh's
+``shard_fn``.  Inside, every block's frames are one batch of blocks * B
+frames, so each kernel launches once a PLP for all of them.
 """
 from __future__ import annotations
 
@@ -34,69 +42,81 @@ from .plan import build_plan, min_batch_frames
 
 
 def _pad_to(x: torch.Tensor, n: int) -> torch.Tensor:
-    """Zero-pad a 1-D tensor at its end to length n."""
-    if x.shape[0] > n:
-        raise ValueError(f"{x.shape[0]} bytes do not fit in {n}")
-    return torch.cat([x, x.new_zeros(n - x.shape[0])])
+    """Zero-pad the last axis of x at its end to length n."""
+    if x.shape[-1] > n:
+        raise ValueError(f"{x.shape[-1]} bytes do not fit in {n}")
+    return torch.cat([x, x.new_zeros(*x.shape[:-1], n - x.shape[-1])],
+                     dim=-1)
 
 
 def bb_and_fec(pt: PlpTensors, ts_padded: torch.Tensor) -> torch.Tensor:
-    """TS bytes (187 carry + fresh) -> LDPC frame bits (F, frame_bits) u8.
+    """TS bytes -> LDPC frame bits (blocks * F, frame_bits) u8.
 
-    BB framing stays in the byte domain: the TS -> data-field map is
-    affine, so it is reshapes and slices.  NORMAL mode replaces each sync
-    byte with the CRC-8 of the packet before it (a GF(2) product), HIEFF
-    drops the sync column, in-band frames carry the static in-band field.
-    Then scrambling, BCH (a GF(2) product) and the LDPC codeword (one
-    kernel on the card writes info bits and parity)."""
+    ``ts_padded`` is one window (187 carry + fresh,) or a (blocks, 187 +
+    fresh) stack of them, one a block (the rows of the JAX step's
+    ``jax.vmap``); a window is one block.  The blocks' FEC frames come out
+    block by block, as one batch for the LDPC kernel.  BB framing stays in
+    the byte domain: the TS -> data-field map is affine, so it is
+    reshapes and slices.  NORMAL mode replaces each sync byte with the
+    CRC-8 of the packet before it (a GF(2) product), HIEFF drops the sync
+    column, in-band frames carry the static in-band field.  Then
+    scrambling, BCH (a GF(2) product) and the LDPC codeword (one kernel on
+    the card writes info bits and parity)."""
     pp = pt.pp
     cfg = pp.cfg
     bb = pp.bb
     f, p = pp.fec_frames, pp.n_packets
-    nfresh = ts_padded.shape[0] - 187
+    ts = ts_padded.reshape(-1, ts_padded.shape[-1])    # (blocks, 187 + fresh)
+    blocks = ts.shape[0]
+    nfresh = ts.shape[1] - 187
 
     if bb.hieff:
-        stream_b = ts_padded[187:].reshape(p, 188)[:, 1:].reshape(-1)
+        stream_b = ts[:, 187:].reshape(blocks, p, 188)[:, :, 1:].reshape(
+            blocks, -1)
     elif p == 0:
         # no sync slot in the window: the payload passes unmodified
-        stream_b = ts_padded[187:]
+        stream_b = ts[:, 187:]
     else:
         # o = fresh-stream index of the first sync slot; sync slot i sits
         # at fresh byte o + 188 i and its CRC covers the 187 bytes before
         # it: the carry window's tail for i = 0, packet row i - 1 after
         o = bb.sync_offset
-        aligned = _pad_to(ts_padded[187 + o:], p * 188).reshape(p, 188)
-        pkt_b = torch.cat([ts_padded[o:o + 187][None], aligned[:-1, 1:]],
-                          dim=0)
-        crc = gf2_matmul(unpackbits(pkt_b, dim=1), pt.crc_matrix)
-        groups = torch.cat([packbits(crc, dim=1), aligned[:, 1:]],
-                           dim=1).reshape(-1)
+        aligned = _pad_to(ts[:, 187 + o:], p * 188).reshape(blocks, p, 188)
+        pkt_b = torch.cat([ts[:, None, o:o + 187], aligned[:, :-1, 1:]],
+                          dim=1)                           # (blocks, p, 187)
+        crc = gf2_matmul(unpackbits(pkt_b.reshape(blocks * p, 187), dim=1),
+                         pt.crc_matrix)
+        groups = torch.cat([packbits(crc, dim=1).reshape(blocks, p, 1),
+                            aligned[:, :, 1:]], dim=2).reshape(blocks, -1)
         if o:
-            stream_b = torch.cat([ts_padded[187:187 + o], groups])[:nfresh]
+            stream_b = torch.cat([ts[:, 187:187 + o], groups],
+                                 dim=1)[:, :nfresh]
         else:
-            stream_b = groups[:nfresh]
+            stream_b = groups[:, :nfresh]
 
     kbch_b = cfg.kbch // 8
+    d_bytes = kbch_b - 10
     if not bb.inband:
-        df = stream_b.reshape(f, kbch_b - 10)
-        kb_bytes = torch.cat([pt.headers_b, df], dim=1)
+        df = stream_b.reshape(blocks, f, d_bytes)
+        kb_bytes = torch.cat([pt.headers_b.expand(blocks, -1, -1), df], dim=2)
     else:
         # first frame of each fec_blocks group: 13 fewer payload bytes,
         # then the 104-bit in-band field
         k = cfg.fec_blocks
-        b = f // k
-        d_bytes = kbch_b - 10
+        b = blocks * (f // k)                  # the groups of every block
         groups = stream_b.reshape(b, k * d_bytes - 13)
-        hdrs = pt.headers_b.reshape(b, k, 10)
+        hdrs = pt.headers_b.reshape(1, f // k, k, 10).expand(
+            blocks, -1, -1, -1).reshape(b, k, 10)
         ib = pt.inband_b[None, :].expand(b, -1)
         kb0 = torch.cat([hdrs[:, 0], groups[:, :d_bytes - 13], ib], dim=1)
         rest = groups[:, d_bytes - 13:].reshape(b, k - 1, d_bytes)
         kbr = torch.cat([hdrs[:, 1:], rest], dim=2)
-        kb_bytes = torch.cat([kb0[:, None], kbr], dim=1).reshape(f, kbch_b)
+        kb_bytes = torch.cat([kb0[:, None], kbr], dim=1)
 
-    kbch_bits = unpackbits(kb_bytes ^ pt.scramble_b, dim=1)   # (F, kbch)
+    kbch_bits = unpackbits(kb_bytes.reshape(blocks * f, kbch_b)
+                           ^ pt.scramble_b, dim=1)   # (blocks * F, kbch)
     bch_par = gf2_matmul(kbch_bits, pt.bch_matrix)
-    nbch_bits = torch.cat([kbch_bits, bch_par], dim=1)        # (F, nbch)
+    nbch_bits = torch.cat([kbch_bits, bch_par], dim=1)   # (blocks * F, nbch)
     return ldpc_codeword(pt.ldpc, nbch_bits)
 
 
@@ -106,7 +126,9 @@ def map_cells_planes(pt: PlpTensors, frame_bits: torch.Tensor):
     One bit-interleave gather, then the closed form of the gray-coded
     square QAM: per axis A = (2^h - 1) - 2 G, with G the packed prefix
     XOR of the axis bits (EN 302 755 section 6.2), then rotation and the
-    cyclic Q delay of one cell."""
+    cyclic Q delay of one cell.  F counts every LDPC frame of the call,
+    all blocks' (``bb_and_fec``); the delay rolls within each frame's
+    row."""
     cfg = pt.pp.cfg
     mod = cfg.mod_bits
     h = mod // 2
@@ -145,36 +167,49 @@ def _as_windows(plan, ts_padded) -> List[torch.Tensor]:
     return ws
 
 
+def block_view(ts_padded, out: torch.Tensor) -> torch.Tensor:
+    """A step's output over the flat frame axis, (blocks * B, ...), as
+    the caller's shape: (blocks, B, ...) when the windows ``ts_padded``
+    (one a PLP) carry a leading block axis, as it is for one window.  A
+    view, no copy: the counterpart of the ``jax.vmap`` output axis."""
+    w = ts_padded[0] if isinstance(ts_padded, (list, tuple)) else ts_padded
+    return out.unflatten(0, (w.shape[0], -1)) if w.dim() == 2 else out
+
+
 def frame_index(tp: PlanTensors, frame_idx0) -> torch.Tensor:
-    """(B,) int64 T2 frame index of each frame of the step:
-    (frame_idx0 + 0 .. B - 1) mod t2_frames.  ``frame_idx0``, the step's
-    first frame index, is an int or a 0-d int64 tensor on the plan's
-    device; ``compiled.CompiledStep`` passes the tensor, so that a
-    captured step reads the index at every replay (the JAX step's traced
-    ``jnp.int32(frame_idx)``)."""
-    return (frame_idx0 + tp.frame_offsets) % tp.plan.cfg.t2_frames
+    """(blocks * B,) int64 T2 frame index of each frame of the call, block
+    by block: (frame_idx0[i] + 0 .. B - 1) mod t2_frames for block i.
+    ``frame_idx0``, each block's first frame index, is an int or a 0-d
+    int64 tensor for one window, a (blocks,) int64 tensor for a stack of
+    windows, on the plan's device; ``compiled.CompiledStep`` passes a
+    tensor, so that a captured step reads the index at every replay (the
+    JAX step's traced ``jnp.int32(frame_idx)``)."""
+    if torch.is_tensor(frame_idx0):
+        frame_idx0 = frame_idx0.reshape(-1, 1)
+    return ((frame_idx0 + tp.frame_offsets)
+            % tp.plan.cfg.t2_frames).reshape(-1)
 
 
 def frame_grids(tp: PlanTensors, ts_padded, frame_idx0):
-    """Padded TS windows (one per PLP) -> the frame builder's transposed
-    grids (B, S, N2, 128) f32 re/im planes: FEC and mapping per PLP,
-    then L1, payload and dummy cells gathered straight into the 4-step
-    IFFT's layout, with pilots and the optional inverse sinc.
-    ``frame_idx0`` as in ``frame_index``."""
-    plan = tp.plan
-    cfg = plan.cfg
-    b = plan.batch_frames
+    """Padded TS windows (one per PLP, each one window or a (blocks, ·)
+    stack) -> the frame builder's transposed grids (blocks * B, S, N2,
+    128) f32 re/im planes: FEC and mapping per PLP, then L1, payload and
+    dummy cells gathered straight into the 4-step IFFT's layout, with
+    pilots and the optional inverse sinc.  ``frame_idx0`` as in
+    ``frame_index``."""
+    cfg = tp.plan.cfg
     t = tp.tail
 
     res, ims = [], []
-    for pt, w in zip(tp.plps, _as_windows(plan, ts_padded)):
+    for pt, w in zip(tp.plps, _as_windows(tp.plan, ts_padded)):
         i_p, q_p = map_cells_planes(pt, bb_and_fec(pt, w))
-        res.append(i_p.reshape(b, pt.pp.cfg.stream_cells))
-        ims.append(q_p.reshape(b, pt.pp.cfg.stream_cells))
+        res.append(i_p.reshape(-1, pt.pp.cfg.stream_cells))
+        ims.append(q_p.reshape(-1, pt.pp.cfg.stream_cells))
     pay_re = torch.cat(res, dim=1)
     pay_im = torch.cat(ims, dim=1)
 
     idx = frame_index(tp, frame_idx0)
+    b = pay_re.shape[0]                     # blocks * B frames
     zeros = pay_re.new_zeros(b, cfg.n_fc - cfg.c_fc + 1)
     seq_re = torch.cat([t.l1pre_re.expand(b, -1), t.l1post_re[idx],
                         pay_re, t.dummy_re.expand(b, -1), zeros], dim=1)
@@ -192,7 +227,8 @@ def frame_grids(tp: PlanTensors, ts_padded, frame_idx0):
 def ofdm_tail(tp: PlanTensors, g_re: torch.Tensor,
               g_im: torch.Tensor) -> torch.Tensor:
     """Transposed grids -> (B, samples, 2) f32 I/Q: P1, then the 4-step
-    IFFT with its guard interval, in one call (``ops/ifft.py::ifft_gi``)."""
+    IFFT with its guard interval, in one call (``ops/ifft.py::ifft_gi``)
+    over every frame of the grids, all blocks' at once."""
     cfg = tp.plan.cfg
     t = tp.tail
     return ifft_gi(g_re, g_im, t.p1_iq, cfg.fft_points, cfg.guard_samples,
@@ -201,22 +237,27 @@ def ofdm_tail(tp: PlanTensors, g_re: torch.Tensor,
 
 def transmit_step_iq_planar(tp: PlanTensors, ts_padded,
                             frame_idx0) -> torch.Tensor:
-    """Padded TS windows (one per PLP) -> (B, samples, 2) f32 I/Q.
+    """Padded TS windows (one per PLP) -> (B, samples, 2) f32 I/Q, or
+    (blocks, B, samples, 2) for (blocks, ·) windows and a (blocks,) frame
+    index: the counterpart of the JAX step under ``jax.vmap``, whose
+    blocks' frames are one batch (each kernel launches once), row i
+    bit-identical to the call on window row i alone.
 
     Cells, frame grids and the OFDM tail stay separate re/im planes.  The
     frame builder's one gather lands straight in the 4-step IFFT's
     transposed (S, N2, 128) layout, so the tail's rows come out in sample
     order and the guard interval is a row copy (ops/ifft.py)."""
-    return ofdm_tail(tp, *frame_grids(tp, ts_padded, frame_idx0))
+    return block_view(ts_padded,
+                      ofdm_tail(tp, *frame_grids(tp, ts_padded, frame_idx0)))
 
 
 def build_frames(tp: PlanTensors, payload: torch.Tensor,
                  frame_idx0) -> torch.Tensor:
-    """Raw mapper cells (B, total_stream) c64 -> OFDM grids (B, S, fft)
-    c64: L1, payload and dummy cells, then one gather over the natural
-    ``grid_src`` (which composes the cell, time and frequency interleavers
-    and the carrier map), then the pilot plane.  ``frame_idx0`` as in
-    ``frame_index``."""
+    """Raw mapper cells (blocks * B, total_stream) c64 -> OFDM grids
+    (blocks * B, S, fft) c64: L1, payload and dummy cells, then one gather
+    over the natural ``grid_src`` (which composes the cell, time and
+    frequency interleavers and the carrier map), then the pilot plane.
+    ``frame_idx0`` as in ``frame_index``."""
     cfg = tp.plan.cfg
     t = tp.tail
     b = payload.shape[0]
@@ -262,12 +303,12 @@ def modulate(tp: PlanTensors, grids: torch.Tensor) -> torch.Tensor:
 
 def complex_grids(tp: PlanTensors, ts_padded,
                   frame_idx0) -> torch.Tensor:
-    """Padded TS windows (one per PLP) -> (B, S, fft) c64 OFDM grids: FEC
-    and the mapper per PLP, then the complex frame builder."""
-    plan = tp.plan
+    """Padded TS windows (one per PLP, each one window or a (blocks, ·)
+    stack) -> (blocks * B, S, fft) c64 OFDM grids: FEC and the mapper per
+    PLP, then the complex frame builder."""
     payloads = [map_cells(pt, bb_and_fec(pt, w)).reshape(
-        plan.batch_frames, pt.pp.cfg.stream_cells)
-        for pt, w in zip(tp.plps, _as_windows(plan, ts_padded))]
+        -1, pt.pp.cfg.stream_cells)
+        for pt, w in zip(tp.plps, _as_windows(tp.plan, ts_padded))]
     payload = (payloads[0] if len(payloads) == 1
                else torch.cat(payloads, dim=1))
     return build_frames(tp, payload, frame_idx0)
@@ -275,15 +316,19 @@ def complex_grids(tp: PlanTensors, ts_padded,
 
 def transmit_step(tp: PlanTensors, ts_padded,
                   frame_idx0) -> torch.Tensor:
-    """Padded TS windows (one per PLP) -> (B, samples) c64: FEC and the
-    mapper per PLP, then the complex frame builder and tail."""
-    return modulate(tp, complex_grids(tp, ts_padded, frame_idx0))
+    """Padded TS windows (one per PLP) -> (B, samples) c64, or (blocks,
+    B, samples) as in ``transmit_step_iq_planar``: FEC and the mapper per
+    PLP, then the complex frame builder and tail, whose ``torch.fft``
+    runs over every block's symbols at once."""
+    return block_view(ts_padded,
+                      modulate(tp, complex_grids(tp, ts_padded, frame_idx0)))
 
 
 def transmit_step_iq(tp: PlanTensors, ts_padded,
                      frame_idx0) -> torch.Tensor:
-    """Like ``transmit_step`` but (B, samples, 2) f32 I/Q: on either
-    device complex64 is interleaved (re, im), so this is a view."""
+    """Like ``transmit_step`` but (B, samples, 2) (or (blocks, B,
+    samples, 2)) f32 I/Q: on either device complex64 is interleaved (re,
+    im), so this is a view."""
     return torch.view_as_real(transmit_step(tp, ts_padded, frame_idx0))
 
 

@@ -220,12 +220,14 @@ def sharded_trace(cards: int = 1, steps: int = 10, n_mux: int = 8) -> None:
     cards in turn, 47 frames a block, against one ``Transmitter`` of the
     same frames a step on the first card.  Each runs ``steps`` fenced
     ``step_device`` steps on the host clock, then again under
-    ``torch.profiler`` for its device kernel and copy time and the host's
+    ``torch.profiler`` for its device kernel and copy time, the host's
     graph launches and CUDA runtime calls a step
-    (``tools.host_api_calls``); that device time over the unprofiled wall
-    time and the card count is the busy share estimate a card."""
+    (``tools.host_api_calls``) and the kernel wrappers' launches a step
+    (a card's blocks are one batched call: each kernel once a card); that
+    device time over the unprofiled wall time and the card count is the
+    busy share estimate a card."""
     from .parallel import ShardedTransmitter, make_mesh
-    from .tools import host_api_calls
+    from .tools import host_api_calls, kernel_launches, launches_since
     cfg = named_config("vv009_4kshort")
     b = min_batch_frames(cfg)
     devs = [torch.device("cuda", i) for i in range(cards)]
@@ -254,8 +256,10 @@ def sharded_trace(cards: int = 1, steps: int = 10, n_mux: int = 8) -> None:
     for label, n_cards, step in runs:
         fenced(step)  # warm-up: each card's first steps load libraries
         wall = fenced(step)
+        before = kernel_launches()
         with torch.profiler.profile(activities=acts) as prof:
             prof_wall = fenced(step)
+        kernels = {k: v / steps for k, v in launches_since(before).items()}
         kern, copy = _device_ms(prof)
         calls = host_api_calls(prof, steps)
         print(f"vv009 x {n_mux} muxes, {label} ({frames} frames a step), "
@@ -265,7 +269,7 @@ def sharded_trace(cards: int = 1, steps: int = 10, n_mux: int = 8) -> None:
               f"memory copies {copy:.3f} ms; busy share estimate a card "
               f"{(kern + copy) / wall / n_cards:.3f}; a step "
               f"{calls['cudaGraphLaunch']:g} graph launches, host CUDA "
-              f"calls {calls}")
+              f"calls {calls}, kernel launches {kernels}")
 
 
 def operators(name: str, batch: int) -> None:

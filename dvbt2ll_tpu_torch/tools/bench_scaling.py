@@ -8,7 +8,8 @@ Three parts, each under its own time limit:
   A. Strong scaling: the same ``frames`` vv009 frames (drift mode) to a
      ``ShardedTransmitter`` over 1, 2, 4 and 8 frame slots of
      ``--device`` (slots of one card share its stream and are one
-     compiled step, one CUDA graph), wall ms a step and speed-up; then
+     compiled step, one CUDA graph of one batched call, so each kernel
+     launches once a card a step), wall ms a step and speed-up; then
      ``API_STEPS`` more steps under ``torch.profiler`` for the host's
      graph launches and CUDA runtime calls a step (``host_api_calls``).  The blocks are held bit for bit: each against the
      single-chain ``Transmitter`` stepping the same halo window at the

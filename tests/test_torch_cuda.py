@@ -261,15 +261,16 @@ def _drift_sharded(cfg, slots, n_mux):
 def _sharded_vs_sequential(slots):
     """A (2, len(slots) / 2) vv009 mesh, one frame a block: every block on
     its slot's card, bit-identical to the sequential Transmitter at the
-    same per-call batch, both kernels launched once a block."""
+    same per-call batch, both kernels launched once a card (a card's
+    blocks are one batched call)."""
     cfg = vv009_config()
     stx = _drift_sharded(cfg, slots, 2)
     ts = np.stack([synthetic_ts(stx.bytes_per_step_per_mux, seed=11 + c)
                    for c in range(2)])
     before = _launches()
     out = stx.step_device(ts)
-    blocks = len(slots)
-    assert _launches() == (before[0] + blocks, before[1] + blocks)
+    cards = len(set(slots))
+    assert _launches() == (before[0] + cards, before[1] + cards)
     for c in range(2):
         tx = Transmitter(cfg, 1, strict=False, allow_phase_drift=True,
                          device=stx.mesh.devices[c, 0])
@@ -285,9 +286,10 @@ def test_sharded_equals_sequential_on_four_slots(cuda):
     _sharded_vs_sequential([cuda] * 4)
 
 
-def test_sharded_launches_each_kernel_once_a_block(cuda):
-    """4 muxes over a (2, 2) mesh: 2 muxes a block row, 8 blocks a step,
-    every step."""
+def test_sharded_launches_each_kernel_once_a_card(cuda):
+    """4 muxes over a (2, 2) mesh of one card: 2 muxes a block row, 8
+    blocks a step as one batched call, so each kernel launches once a
+    step, every step."""
     stx = _drift_sharded(vv009_config(), [cuda] * 4, 4)
     for step in range(2):
         ts = np.stack([synthetic_ts(stx.bytes_per_step_per_mux,
@@ -295,7 +297,7 @@ def test_sharded_launches_each_kernel_once_a_block(cuda):
                        for c in range(4)])
         before = _launches()
         stx.step_device(ts)
-        assert _launches() == (before[0] + 8, before[1] + 8), step
+        assert _launches() == (before[0] + 1, before[1] + 1), step
 
 
 def test_sharded_over_two_cards(cuda):
@@ -308,7 +310,8 @@ def test_sharded_over_two_cards(cuda):
 def test_hetero_multimux_on_card(cuda):
     """A vv009 group (planar tail) beside a 32k_extended group (complex
     tail: LDPC launches, no tail kernel), each channel bit-identical to its
-    standalone ShardedTransmitter on the card."""
+    standalone ShardedTransmitter on the card; each group's blocks are one
+    batched call, so one LDPC launch a group and one tail launch."""
     cfg_a, cfg_b = vv009_config(), named_config("32k_extended")
     drift = dict(frames_per_shard=1, strict=False, allow_phase_drift=True)
     mm = MultiMuxTransmitter([MuxChannel(cfg_a, n_mux=2, n_devices=4,
@@ -320,7 +323,7 @@ def test_hetero_multimux_on_card(cuda):
           synthetic_ts(nb, seed=32)[None]]
     before = _launches()
     out = mm.step_device(ts)
-    assert _launches() == (before[0] + 6, before[1] + 4)
+    assert _launches() == (before[0] + 2, before[1] + 1)
     refs = [_drift_sharded(cfg_a, [cuda] * 4, 2),
             ShardedTransmitter(cfg_b, make_mesh([cuda] * 2), **drift)]
     for got, ref, t in zip(out, refs, ts):
@@ -581,9 +584,9 @@ def _graph_launches(stx, ts) -> tuple:
 def test_sixteen_compiled_slots_of_one_card(cuda):
     """BASELINE config 5: 8 vv009 muxes strict at 47 frames a block over
     16 slots of the card, t2_frames + 1 steps, all 16 blocks one compiled
-    step (one graph launch a step), each block bit-identical to the eager
-    step on its halo window and frame index, both kernels launched 16
-    times a step."""
+    step (one graph launch a step) of one batched call, each block
+    bit-identical to the one-block eager step on its halo window and frame
+    index, both kernels launched once a step."""
     cfg = vv009_config()
     stx = ShardedTransmitter(cfg, make_mesh([cuda] * 16, mux=8), n_mux=8,
                              frames_per_shard=47)
@@ -597,7 +600,7 @@ def test_sixteen_compiled_slots_of_one_card(cuda):
         carries = ts[:, -187:]
         before = _launches()
         out = stx.step_device(ts)
-        assert _launches() == (before[0] + 16, before[1] + 16)
+        assert _launches() == (before[0] + 1, before[1] + 1)
         for c in range(8):
             for s in range(2):
                 idx = (k * 94 + 47 * s) % cfg.t2_frames
@@ -606,6 +609,42 @@ def test_sixteen_compiled_slots_of_one_card(cuda):
                     windows[c, s]).to(dev), idx)
                 assert torch.equal(out[c][s], want), (k, c, s)
     assert _graph_launches(stx, ts) == (1, [])
+
+
+_BLOCKS = [("vv009_4kshort", 47, 16, True), ("32k_extended", 4, 4, False)]
+
+
+@pytest.mark.parametrize("name,batch,blocks,strict", _BLOCKS,
+                         ids=[f"{n}-{k}x{b}" for n, b, k, _ in _BLOCKS])
+def test_batched_step_equals_one_block_calls(cuda, name, batch, blocks,
+                                             strict):
+    """The step function on (blocks, ·) windows and a (blocks,) frame
+    index on the card: (blocks, B, samples, 2), one LDPC launch a PLP and
+    one tail launch on the planar tail, row i bit-identical to the
+    one-block call on row i (cuFFT over blocks * B * S transforms at
+    32K); and a ``CompiledStep`` over the same blocks replays it."""
+    from dvbt2ll_tpu_torch.compiled import CompiledStep
+    cfg = named_config(name)
+    kw = (dict(strict=True) if strict
+          else dict(strict=False, allow_phase_drift=True))
+    tx = Transmitter(cfg, batch, device=cuda, **kw)
+    ws = [torch.from_numpy(np.stack([
+        synthetic_ts(187 + n, seed=140 + 100 * p + i) for i in range(blocks)
+    ])).to(cuda) for p, n in enumerate(tx.bytes_per_step_per_plp)]
+    idx = [i * batch % cfg.t2_frames for i in range(blocks)]
+    before = _launches()
+    out = tx._step_fn(tx.tensors, ws if len(ws) > 1 else ws[0],
+                      torch.tensor(idx, device=cuda))
+    assert _launches() == (before[0] + len(ws),
+                           before[1] + select_step_iq(cfg)[1])
+    assert out.shape == (blocks, batch, cfg.samples_per_frame, 2)
+    for i in range(blocks):
+        one = [w[i] for w in ws]
+        want = tx._step_fn(tx.tensors, one if len(one) > 1 else one[0],
+                           idx[i])
+        assert torch.equal(out[i], want), (i, idx[i])
+    step = CompiledStep(tx._step_fn, tx.tensors, tx.plan, cuda, blocks)
+    assert torch.equal(step(ws, idx), out)
 
 
 def test_mesh_over_cards_is_one_graph_a_card(cuda):
