@@ -33,6 +33,11 @@ not run.  A capture launches nothing, so its increase of each count is
 taken back and added at every replay instead: the counts read as in eager
 mode.
 
+Under the port's tracing a step's host parts are spans:
+``compiled.wait`` (waiting until the previous step's copies have read
+the pinned rows), ``compiled.stage`` (writing them), ``compiled.upload``
+and ``compiled.launch`` (the replay and the output copy).
+
 On the CPU ``CompiledStep`` makes the same call on the same static
 inputs, with no graph, and the host rows are the static inputs
 themselves.  On a CUDA device a capture that fails raises; there is no
@@ -45,6 +50,7 @@ import time
 import numpy as np
 import torch
 
+from .observability import span
 from .ops import kernel_wrappers
 
 
@@ -147,22 +153,24 @@ class CompiledStep:
         int64 frame indices.  On a card they are pinned, and this first
         waits until the previous step's copies have read them; ``upload``
         then sends them.  On the CPU they are the static inputs."""
-        if self._graph is not None:
-            self._staged.synchronize()
+        with span("compiled.wait"):
+            if self._graph is not None:
+                self._staged.synchronize()
         return [h.numpy() for h in self._host], self._host_idx.numpy()
 
     def upload(self, plps=None) -> None:
         """Send the host rows written since ``host_inputs`` to the card:
         the frame indices and the windows of ``plps`` (default every PLP),
         one asynchronous copy each.  Nothing to do on the CPU."""
-        if self._graph is None:
-            return
-        plps = range(len(self._sizes)) if plps is None else plps
-        with torch.cuda.device(self.device):
-            for p in plps:
-                self.windows[p].copy_(self._host[p], non_blocking=True)
-            self.frame_idx.copy_(self._host_idx, non_blocking=True)
-            self._staged.record(torch.cuda.current_stream(self.device))
+        with span("compiled.upload"):
+            if self._graph is None:
+                return
+            plps = range(len(self._sizes)) if plps is None else plps
+            with torch.cuda.device(self.device):
+                for p in plps:
+                    self.windows[p].copy_(self._host[p], non_blocking=True)
+                self.frame_idx.copy_(self._host_idx, non_blocking=True)
+                self._staged.record(torch.cuda.current_stream(self.device))
 
     def stage(self, windows, frame_idx) -> None:
         """Write one step's inputs: ``windows``, one a PLP, each (blocks,
@@ -179,25 +187,28 @@ class CompiledStep:
             raise ValueError(f"{len(frame_idx)} frame indices for "
                              f"{self.blocks} blocks")
         rows, idx = self.host_inputs()
-        idx[:] = frame_idx
-        hosted = []
-        for p, (d, row, w) in enumerate(zip(self.windows, rows, windows)):
-            if torch.is_tensor(w):
-                d.copy_(w)
-            else:
-                np.copyto(row, w, casting="no")
-                hosted.append(p)
+        with span("compiled.stage"):
+            idx[:] = frame_idx
+            hosted = []
+            for p, (d, row, w) in enumerate(zip(self.windows, rows,
+                                                windows)):
+                if torch.is_tensor(w):
+                    d.copy_(w)
+                else:
+                    np.copyto(row, w, casting="no")
+                    hosted.append(p)
         self.upload(hosted)
 
     def replay(self) -> torch.Tensor:
         """The step on the staged inputs: (blocks, B, samples, 2) f32 I/Q,
         block i from row i of the static inputs; on a card a copy of the
         graph's output, which no later step writes."""
-        if self._graph is None:
-            return self._run()
-        self._graph.replay()
-        with torch.cuda.device(self.device):
-            return self._out.clone()
+        with span("compiled.launch"):
+            if self._graph is None:
+                return self._run()
+            self._graph.replay()
+            with torch.cuda.device(self.device):
+                return self._out.clone()
 
     def __call__(self, windows, frame_idx) -> torch.Tensor:
         self.stage(windows, frame_idx)

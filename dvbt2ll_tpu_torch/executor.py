@@ -16,6 +16,14 @@ allocator owns, so ``record_stream`` protects it as it protects any
 tensor.  A CPU transmitter's output is already on the host: its drain is
 a view.
 
+Under the port's tracing (``observability``) a step is the span
+``executor.step`` with the children ``executor.read`` (the sources,
+waiting for TS included), ``transmitter.step``, ``executor.copy`` (the
+pinned buffer, the events, the copy's enqueue), ``executor.drain`` (the
+wait for the previous step's copy, FEF insertion) and ``executor.sink``;
+the copy's done event is then a timing event, and the instant
+``executor.copy_done`` puts its completion on the host's clock.
+
     executor = StreamingExecutor(tx, source=ingest_or_callable, sink=sink)
     executor.run(n_steps)
 """
@@ -27,6 +35,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import observability
+from .observability import span
 from .pipeline import Transmitter
 
 
@@ -39,16 +49,21 @@ class _HostCopy:
     later step before the copy has read it.  Each step gets its own
     pinned buffer from PyTorch's caching host allocator: the array a
     drain returns is a view of it and stays the caller's, and the block
-    goes back to the cache only when the caller drops that array."""
+    goes back to the cache only when the caller drops that array.
+    ``timed`` makes ``done`` a timing event, for
+    ``observability.device_time_ns``, and is kept: a copy enqueued with
+    tracing off has no time to read, whenever it is drained."""
 
-    def __init__(self, out: torch.Tensor, side: torch.cuda.Stream):
+    def __init__(self, out: torch.Tensor, side: torch.cuda.Stream,
+                 timed: bool = False):
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(out.device))
         self.host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         side.wait_event(ready)
+        self.timed = timed
         with torch.cuda.stream(side):
             self.host.copy_(out, non_blocking=True)
-            self.done = torch.cuda.Event()
+            self.done = torch.cuda.Event(enable_timing=timed)
             self.done.record(side)
         out.record_stream(side)
 
@@ -84,49 +99,75 @@ class StreamingExecutor:
         self.realtime = realtime
         self._side = (torch.cuda.Stream(tx.device)
                       if tx.device.type == "cuda" else None)
-        self._pending = None  # (_HostCopy or CPU tensor, start frame idx)
+        # (_HostCopy or CPU tensor, start frame idx, step number)
+        self._pending = None
+        self._steps = 0
 
     def _read_step_input(self):
         return [np.asarray(src(pp.ts_bytes_in), dtype=np.uint8)
                 for src, pp in zip(self.sources, self.tx.plan.plps)]
 
-    def _drain(self) -> Optional[np.ndarray]:
+    def _drain(self) -> Optional[tuple]:
+        """The pending step's IQ, its copy waited for, and its step
+        number.  Under tracing the instant ``executor.copy_done`` is when
+        the copy completed on the card (``device_time_ns``)."""
         if self._pending is None:
             return None
-        out, start = self._pending
+        out, start, k = self._pending
         self._pending = None
-        iq = out.wait() if self._side is not None else out.numpy()
-        frames = iq.reshape(iq.shape[0], -1).view(np.complex64)
-        if self.tx.cfg.has_fef:
-            # the emitted stream carries FEF parts (like Transmitter.stream)
-            return self.tx._with_fef(frames, start)[None]
-        return frames
+        with span("executor.drain", k):
+            iq = out.wait() if self._side is not None else out.numpy()
+            if (self._side is not None and out.timed
+                    and observability.enabled()):
+                observability.instant(
+                    "executor.copy_done",
+                    observability.device_time_ns(out.done, self.tx.device))
+            frames = iq.reshape(iq.shape[0], -1).view(np.complex64)
+            if self.tx.cfg.has_fef:
+                # the emitted stream carries FEF parts (like
+                # Transmitter.stream)
+                frames = self.tx._with_fef(frames, start)[None]
+        return frames, k
+
+    def _hand_off(self, drained: Optional[tuple]) -> Optional[np.ndarray]:
+        """A drained step's IQ to the sink; returns the IQ."""
+        if drained is None:
+            return None
+        iq, k = drained
+        if self.sink is not None:
+            with span("executor.sink", k):
+                self.sink.write(iq)
+        return iq
 
     def step(self) -> Optional[np.ndarray]:
         """Enqueue one device step and its copy to the host, then return
-        the PREVIOUS step's IQ (None on the first call)."""
-        streams = self._read_step_input()
-        ts = streams if len(streams) > 1 else streams[0]
-        start = self.tx._frame_idx  # frame index this step starts at
-        try:
-            out = self.tx.step_device(ts)
-            pending = (_HostCopy(out, self._side) if self._side is not None
-                       else out)
-        except Exception:
-            # don't lose the already-computed step N-1 held in _pending
-            self.flush()
-            raise
-        prev = self._drain()
-        self._pending = (pending, start)
-        if prev is not None and self.sink is not None:
-            self.sink.write(prev)
-        return prev
+        the PREVIOUS step's IQ (None on the first call).  Under tracing
+        the span ``executor.step`` carries this step's number; its
+        ``executor.drain`` and ``executor.sink`` carry the previous
+        step's, whose IQ they handle."""
+        k = self._steps
+        with span("executor.step", k):
+            with span("executor.read"):
+                streams = self._read_step_input()
+            ts = streams if len(streams) > 1 else streams[0]
+            start = self.tx._frame_idx  # frame index this step starts at
+            try:
+                out = self.tx.step_device(ts)
+                with span("executor.copy"):
+                    pending = (_HostCopy(out, self._side,
+                                         observability.enabled())
+                               if self._side is not None else out)
+            except Exception:
+                # don't lose the already-computed step N-1 held in _pending
+                self.flush()
+                raise
+            self._steps += 1
+            drained = self._drain()
+            self._pending = (pending, start, k)
+            return self._hand_off(drained)
 
     def flush(self) -> Optional[np.ndarray]:
-        prev = self._drain()
-        if prev is not None and self.sink is not None:
-            self.sink.write(prev)
-        return prev
+        return self._hand_off(self._drain())
 
     def run(self, n_steps: int) -> dict:
         """Run n_steps with overlap; returns the transmitter counters.

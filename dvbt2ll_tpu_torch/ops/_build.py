@@ -114,6 +114,8 @@ def library() -> ctypes.CDLL:
     lib.dvbt2ll_ldpc_codeword.restype = i32
     lib.dvbt2ll_ofdm_tail.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.dvbt2ll_ofdm_tail.restype = i32
+    lib.dvbt2ll_stage_mark.argtypes = [i32, ptr]
+    lib.dvbt2ll_stage_mark.restype = i32
     lib.dvbt2ll_error_string.argtypes = [i32]
     lib.dvbt2ll_error_string.restype = ctypes.c_char_p
     return lib

@@ -47,6 +47,7 @@ import torch.distributed as dist
 from ..compiled import CompiledStep, Graph
 from ..config import T2Config
 from ..convert import plan_tensors
+from ..observability import span
 from ..ops.ifft import set_full_fp32_matmul
 from ..pipeline import (block_view, complex_grids, select_step_iq,
                         symbols_with_gi)
@@ -232,7 +233,10 @@ class ShardedTransmitter:
         Every block's halo window and frame index is written into its
         row of its device's pinned staging and sent with one copy a PLP
         a device, then each device's step is one replay, before any result
-        is read.  Returns ``out[c][s]``, for mux c and frame shard s, the
+        is read (under tracing the span ``mesh.step``: a card's
+        ``compiled.wait``, ``mesh.stage``, the writing of its rows, and
+        ``compiled.upload``, then each card's ``compiled.launch``).
+        Returns ``out[c][s]``, for mux c and frame shard s, the
         f32 (B_local, samples, 2) I/Q tensor on that block's device (row
         j of its device's (blocks, B_local, samples, 2) output, as the
         JAX ``shard_fn`` hands out its ``vmap``'s rows), or None where
@@ -261,27 +265,28 @@ class ShardedTransmitter:
         base = self._step_no * self.frames_per_step
         fidx = (base + np.arange(self.frame_shards) * self.plan.batch_frames
                 ) % cfg.t2_frames
-        self._step_no += 1
-
-        # the halo windows go straight into the pinned rows; every device
-        # is staged before any device runs, so no staging waits for
-        # another device's step
-        per = [s.shape[1] // self.frame_shards for s in streams]
-        for dev, step in self._steps.items():
-            rows, idx = step.host_inputs()
-            for j, (c, f) in enumerate(self._blocks[dev]):
-                idx[j] = fidx[f]
-                for i, s in enumerate(streams):
-                    _write_window(rows[i][j], self._carries[c, i], s[c],
-                                  f * per[i])
-            step.upload()
-        for i, s in enumerate(streams):
-            self._carries[:, i] = s[:, -187:]
-        out = [[None] * self.frame_shards for _ in range(self.n_mux)]
-        for dev, step in self._steps.items():
-            stacked = step.replay()
-            for j, (c, f) in enumerate(self._blocks[dev]):
-                out[c][f] = stacked[j]
+        with span("mesh.step", self._step_no):
+            self._step_no += 1
+            # the halo windows go straight into the pinned rows; every
+            # device is staged before any device runs, so no staging waits
+            # for another device's step
+            per = [s.shape[1] // self.frame_shards for s in streams]
+            for dev, step in self._steps.items():
+                rows, idx = step.host_inputs()
+                with span("mesh.stage"):
+                    for j, (c, f) in enumerate(self._blocks[dev]):
+                        idx[j] = fidx[f]
+                        for i, s in enumerate(streams):
+                            _write_window(rows[i][j], self._carries[c, i],
+                                          s[c], f * per[i])
+                step.upload()
+            for i, s in enumerate(streams):
+                self._carries[:, i] = s[:, -187:]
+            out = [[None] * self.frame_shards for _ in range(self.n_mux)]
+            for dev, step in self._steps.items():
+                stacked = step.replay()
+                for j, (c, f) in enumerate(self._blocks[dev]):
+                    out[c][f] = stacked[j]
         return out
 
     def _require_whole_mesh(self) -> None:

@@ -21,11 +21,16 @@ fresh) stack of windows a PLP and a (blocks,) frame index, and return
 counterpart of ``jax.vmap`` over the JAX step in the mesh's
 ``shard_fn``.  Inside, every block's frames are one batch of blocks * B
 frames, so each kernel launches once a PLP for all of them.
+
+While the port's tracing is on, the step functions put a device stage
+mark (``observability.mark``) at their entry (``start``), after each
+PLP's ``bb_and_fec`` (``fec``) and mapper (``map``), after the frame
+grids (``frames``) and after the OFDM tail (``tail``); a step captured
+with tracing off holds none.
 """
 from __future__ import annotations
 
 import math
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -35,7 +40,7 @@ from ._bits import gf2_matmul, packbits, unpackbits
 from .compiled import CompiledStep
 from .config import T2Config
 from .convert import PlanTensors, PlpTensors, plan_tensors
-from .observability import TxCounters, check_ts_sync
+from .observability import TxCounters, check_ts_sync, mark, span
 from .ops.ifft import ifft_gi, set_full_fp32_matmul, supported
 from .ops.ldpc import ldpc_codeword
 from .plan import build_plan, min_batch_frames
@@ -202,7 +207,10 @@ def frame_grids(tp: PlanTensors, ts_padded, frame_idx0):
 
     res, ims = [], []
     for pt, w in zip(tp.plps, _as_windows(tp.plan, ts_padded)):
-        i_p, q_p = map_cells_planes(pt, bb_and_fec(pt, w))
+        bits = bb_and_fec(pt, w)
+        mark("fec", bits)
+        i_p, q_p = map_cells_planes(pt, bits)
+        mark("map", i_p)
         res.append(i_p.reshape(-1, pt.pp.cfg.stream_cells))
         ims.append(q_p.reshape(-1, pt.pp.cfg.stream_cells))
     pay_re = torch.cat(res, dim=1)
@@ -221,6 +229,7 @@ def frame_grids(tp: PlanTensors, ts_padded, frame_idx0):
     if t.eq_t is not None:
         g_re = g_re * t.eq_t
         g_im = g_im * t.eq_t
+    mark("frames", g_re)
     return g_re, g_im
 
 
@@ -247,8 +256,10 @@ def transmit_step_iq_planar(tp: PlanTensors, ts_padded,
     frame builder's one gather lands straight in the 4-step IFFT's
     transposed (S, N2, 128) layout, so the tail's rows come out in sample
     order and the guard interval is a row copy (ops/ifft.py)."""
-    return block_view(ts_padded,
-                      ofdm_tail(tp, *frame_grids(tp, ts_padded, frame_idx0)))
+    mark("start", _as_windows(tp.plan, ts_padded)[0])
+    out = ofdm_tail(tp, *frame_grids(tp, ts_padded, frame_idx0))
+    mark("tail", out)
+    return block_view(ts_padded, out)
 
 
 def build_frames(tp: PlanTensors, payload: torch.Tensor,
@@ -306,12 +317,18 @@ def complex_grids(tp: PlanTensors, ts_padded,
     """Padded TS windows (one per PLP, each one window or a (blocks, ·)
     stack) -> (blocks * B, S, fft) c64 OFDM grids: FEC and the mapper per
     PLP, then the complex frame builder."""
-    payloads = [map_cells(pt, bb_and_fec(pt, w)).reshape(
-        -1, pt.pp.cfg.stream_cells)
-        for pt, w in zip(tp.plps, _as_windows(tp.plan, ts_padded))]
+    payloads = []
+    for pt, w in zip(tp.plps, _as_windows(tp.plan, ts_padded)):
+        bits = bb_and_fec(pt, w)
+        mark("fec", bits)
+        payloads.append(map_cells(pt, bits).reshape(
+            -1, pt.pp.cfg.stream_cells))
+        mark("map", payloads[-1])
     payload = (payloads[0] if len(payloads) == 1
                else torch.cat(payloads, dim=1))
-    return build_frames(tp, payload, frame_idx0)
+    grids = build_frames(tp, payload, frame_idx0)
+    mark("frames", grids)
+    return grids
 
 
 def transmit_step(tp: PlanTensors, ts_padded,
@@ -320,8 +337,10 @@ def transmit_step(tp: PlanTensors, ts_padded,
     B, samples) as in ``transmit_step_iq_planar``: FEC and the mapper per
     PLP, then the complex frame builder and tail, whose ``torch.fft``
     runs over every block's symbols at once."""
-    return block_view(ts_padded,
-                      modulate(tp, complex_grids(tp, ts_padded, frame_idx0)))
+    mark("start", _as_windows(tp.plan, ts_padded)[0])
+    out = modulate(tp, complex_grids(tp, ts_padded, frame_idx0))
+    mark("tail", out)
+    return block_view(ts_padded, out)
 
 
 def transmit_step_iq(tp: PlanTensors, ts_padded,
@@ -415,30 +434,33 @@ class Transmitter:
         like ``step_device``; with ``validate_ts`` each window's TS sync
         bytes are checked first and misses add to
         ``counters.sync_errors``.  The windows and the frame counter are
-        staged into the compiled step, which runs.  Returns the f32
-        (B, samples, 2) I/Q tensor on the transmitter's device, which no
-        later step writes."""
+        staged into the compiled step, which runs (under tracing the span
+        ``transmitter.step``, with ``transmitter.validate`` a PLP when
+        validating).  Returns the f32 (B, samples, 2) I/Q tensor on the
+        transmitter's device, which no later step writes."""
         ws = _as_windows(self.plan, windows)
         self._check_streamable()
-        t0 = time.perf_counter()
-        ws = [np.asarray(w, dtype=np.uint8) for w in ws]
-        for pp, w in zip(self.plan.plps, ws):
-            if w.shape != (187 + pp.ts_bytes_in,):
-                raise ValueError(f"window of shape {w.shape}, expected "
-                                 f"({187 + pp.ts_bytes_in},)")
-            if self._validate_ts:
-                # a drifted per-phase plan starts mid-packet: its sync
-                # slots sit at the plan's start phase
-                self.counters.sync_errors += check_ts_sync(
-                    w[187:], phase=pp.bb.start_phase)
-        out = self._compiled([w[None] for w in ws], [self._frame_idx])[0]
+        with span("transmitter.step"):
+            ws = [np.asarray(w, dtype=np.uint8) for w in ws]
+            for pp, w in zip(self.plan.plps, ws):
+                if w.shape != (187 + pp.ts_bytes_in,):
+                    raise ValueError(f"window of shape {w.shape}, expected "
+                                     f"({187 + pp.ts_bytes_in},)")
+                if self._validate_ts:
+                    # a drifted per-phase plan starts mid-packet: its sync
+                    # slots sit at the plan's start phase
+                    with span("transmitter.validate"):
+                        self.counters.sync_errors += check_ts_sync(
+                            w[187:], phase=pp.bb.start_phase)
+            out = self._compiled([w[None] for w in ws],
+                                 [self._frame_idx])[0]
         self._carries = [w[-187:].copy() for w in ws]
         self._frame_idx = ((self._frame_idx + self.plan.batch_frames)
                            % self.cfg.t2_frames)
         self._steps_done += 1
         self.counters.record_step(
             self.plan.batch_frames, self.plan.samples_out,
-            sum(w.size - 187 for w in ws), time.perf_counter() - t0)
+            sum(w.size - 187 for w in ws))
         return out
 
     def step_device(self, ts_bytes) -> torch.Tensor:

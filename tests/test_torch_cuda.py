@@ -662,3 +662,140 @@ def test_mesh_over_cards_is_one_graph_a_card(cuda):
     ts = np.stack([synthetic_ts(stx.bytes_per_step_per_mux, seed=13 + c)
                    for c in range(2)])
     assert _graph_launches(stx, ts) == (len(set(slots)), [])
+
+
+# ------------------------------------------------------------ tracing
+def _device_kernels(run, steps: int) -> list:
+    """Names of the card's kernels, in start order, over ``steps`` calls
+    of ``run`` under torch.profiler (the device copies of profiler ranges
+    left out)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+    evs = []
+    for e in prof.profiler.kineto_results.events():
+        if (str(e.device_type()).endswith("CUDA")
+                and not e.name().startswith("tx:")):
+            start = getattr(e, "start_ns", None)
+            evs.append((start() if start else e.start_us() * 1000,
+                        e.name()))
+    return [n for _, n in sorted(evs)]
+
+
+def _traced_transmitter(cuda, name, trace: bool):
+    from dvbt2ll_tpu_torch import observability
+    cfg = named_config(name)
+    if trace:
+        observability.enable()
+    try:
+        tx = Transmitter(cfg, min_batch_frames(cfg), device=cuda)
+    finally:
+        observability.disable()
+    streams = [synthetic_ts(n, seed=150 + i)
+               for i, n in enumerate(tx.bytes_per_step_per_plp)]
+    return lambda: tx.step_device(streams if len(streams) > 1
+                                  else streams[0])
+
+
+_MARKED = ["vv009_4kshort", "multiplp_fef", "32k_extended"]
+
+
+@pytest.mark.parametrize("name", _MARKED)
+def test_capture_with_tracing_on_holds_the_stage_marks(cuda, name):
+    """A step captured while tracing is on (planar tail, two PLPs, the
+    complex tail) replays one mark a boundary, in step order, in every
+    replay, whether or not tracing is still on; one captured while it is
+    off replays the same kernels, as many times each, and no mark."""
+    from collections import Counter
+    # a graph captured before the process's first profiler session shows
+    # some of its device-to-device copies as ``memcpy32_post`` kernels, one
+    # captured after it as ``Memcpy DtoD``: both captures come after one
+    _device_kernels(lambda: (torch.ones(4, device=cuda) * 2).sum().item(), 1)
+    on = _device_kernels(_traced_transmitter(cuda, name, True), 3)
+    off = _device_kernels(_traced_transmitter(cuda, name, False), 3)
+    marks = [n[len("dvbt2ll_mark_"):] for n in on
+             if n.startswith("dvbt2ll_mark_")]
+    one = (["start"] + ["fec", "map"] * named_config(name).num_plp
+           + ["frames", "tail"])
+    assert marks == one * 3
+    assert not [n for n in off if "dvbt2ll_mark_" in n]
+    assert Counter(n for n in on if not n.startswith("dvbt2ll_mark_")) \
+        == Counter(off)
+
+
+def test_copy_done_lies_between_enqueue_and_drain(cuda):
+    """``device_time_ns`` of each step's copy to the host: after the
+    ``executor.copy`` span that enqueued it began, before the drain that
+    waited for it returned."""
+    from dvbt2ll_tpu_torch import observability
+    cfg = vv009_config()
+    tx = Transmitter(cfg, min_batch_frames(cfg), device=cuda)
+    n = tx.bytes_per_step
+    ts = synthetic_ts(5 * n, seed=160)
+    pos = {"o": 0}
+
+    def source(nbytes):
+        pos["o"] += nbytes
+        return ts[pos["o"] - nbytes:pos["o"]]
+
+    ex = StreamingExecutor(tx, source)
+    observability.enable()
+    try:
+        for _ in range(4):
+            ex.step()
+        ex.flush()
+    finally:
+        observability.disable()
+    recs = observability.records()
+    copy = {r.step: r for r in recs if r.name == "executor.copy"}
+    drain = {r.step: r for r in recs if r.name == "executor.drain"}
+    done = {r.step: r.t0_ns for r in recs if r.name == "executor.copy_done"}
+    assert sorted(done) == sorted(copy) == sorted(drain) == [0, 1, 2, 3]
+    for k, t in done.items():
+        assert copy[k].t0_ns < t < drain[k].t1_ns, k
+
+
+def test_tracing_turned_on_between_steps_loses_no_step(cuda):
+    """Tracing turned on while a step's copy, enqueued with it off, is
+    pending: every step's IQ still reaches the sink, bit for bit
+    ``Transmitter.stream``'s, and only the copies enqueued with tracing on
+    have an ``executor.copy_done`` instant."""
+    from dvbt2ll_tpu_torch import observability
+    cfg = vv009_config()
+    batch = min_batch_frames(cfg)
+    tx = Transmitter(cfg, batch, device=cuda)
+    ref = Transmitter(cfg, batch, device=cuda)
+    n = tx.bytes_per_step
+    ts = synthetic_ts(4 * n, seed=161)
+    want = [ref.stream(ts[k * n:(k + 1) * n]) for k in range(4)]
+    pos = {"o": 0}
+
+    def source(nbytes):
+        pos["o"] += nbytes
+        return ts[pos["o"] - nbytes:pos["o"]]
+
+    sunk = []
+
+    class Sink:
+        def write(self, iq):
+            sunk.append(np.array(iq))
+
+    ex = StreamingExecutor(tx, source, sink=Sink())
+    observability.disable()
+    ex.step()
+    observability.enable()
+    try:
+        for _ in range(3):
+            ex.step()
+        ex.flush()
+    finally:
+        observability.disable()
+    assert len(sunk) == 4
+    for k, (g, w) in enumerate(zip(sunk, want)):
+        assert np.array_equal(g.reshape(-1), w), f"step {k}"
+    done = sorted(r.step for r in observability.records()
+                  if r.name == "executor.copy_done")
+    assert done == [1, 2, 3]
