@@ -14,6 +14,10 @@ imports no JAX.  Phases, each of which raises on failure:
    table (2048 frames, one batch-256 step; 6016 frames, one step of
    BASELINE config 5's 16 blocks batched) and the 8k_normal table (512
    frames), timed beside its plain twin and its bound;
+2b. the BB/BCH kernel (BB framing, packet CRC-8, scrambling, BCH)
+   against its plain twin on the card, bit for bit, on vv009 and
+   8k_normal windows at batch 256 and config 5's 16 blocks of 47 vv009
+   frames (6016 frames), timed beside its plain twin and its bound;
 3. the fused OFDM tail kernel (P1, then each symbol's 4-step IFFT and
    guard interval as final I/Q) against its plain twin on the same grids
    and P1: P1 bit for bit, the rest above 120 dB SNR, at vv009 and
@@ -28,10 +32,11 @@ imports no JAX.  Phases, each of which raises on failure:
 4b. the JAX package's config matrix (``MATRIX``: every config of
    tests/test_configs_e2e.py and tests/test_modes.py), each case at its
    test batch through ``Transmitter.step_device`` on the card against the
-   port on the CPU (FEC bits exact, IQ above 120 dB, ``ldpc_parity`` once
-   a step, ``ifft_gi`` once a step on the planar tail and never on the
-   complex one; the two streaming cases one Transmitter a step with
-   ``start_phases``, resumed from the previous one's checkpoint), then two
+   port on the CPU (FEC bits exact, IQ above 120 dB, ``bb_bch`` and
+   ``ldpc_parity`` once a step, ``ifft_gi`` once a step on the planar
+   tail and never on the complex one; the two streaming cases one
+   Transmitter a step with ``start_phases``, resumed from the previous
+   one's checkpoint), then two
    steps at batch 256 in drift mode (HIEFF: the largest multiple of its
    smallest batch up to 256), checked like phase 6, each timed;
 5. the main path at full width: vv009 at batch 256 through
@@ -153,6 +158,11 @@ CONFIG5_FRAMES = 16 * 47
 LDPC_CASES = (("vv009_4kshort", "vv009_4kshort", 8 * BATCH),
               ("8k_normal", "8k_normal", 512),
               ("config5", "vv009_4kshort", 8 * CONFIG5_FRAMES))
+# (key, config, batch, blocks) of the BB/BCH kernel's checks: vv009 and
+# 8k_normal at batch 256, and config 5's 16 blocks of 47 vv009 frames
+BB_BCH_CASES = (("vv009_4kshort", "vv009_4kshort", BATCH, 1),
+                ("8k_normal", "8k_normal", BATCH, 1),
+                ("config5", "vv009_4kshort", 47, 16))
 TAIL_DB = 120.0        # tail kernel vs its twin: both float32, sums reordered
 # ((B, S), fft, gi, key when timed): vv009 and 8k_normal at batch 256 and
 # vv009 at config 5's batch, then the other planar geometries for
@@ -359,6 +369,48 @@ def ldpc_phase(torch, dev, rng) -> dict:
     return times
 
 
+def bb_bch_phase(torch, dev) -> dict:
+    """The BB/BCH kernel against its plain twin run on the card, on the
+    same windows, bit for bit; timed beside its bound and the twin.  No
+    single PyTorch call computes CRC-8, scrambling and BCH, so there is no
+    library time."""
+    import dataclasses
+    from dvbt2ll_tpu_torch import build_plan, named_config, synthetic_ts
+    from dvbt2ll_tpu_torch.ops.fec import (bb_bch, bb_bch_plain,
+                                           bb_bch_tables)
+    from dvbt2ll_tpu_torch.profile_step import cuda_ms
+    from dvbt2ll_tpu_torch.tools.roofline import bound
+    times = {}
+    for key, name, batch, blocks in BB_BCH_CASES:
+        pp = build_plan(named_config(name), batch, strict=False).plps[0]
+        t, host = bb_bch_tables(pp, dev), bb_bch_tables(pp, "cpu")
+        # the twin on the card: its GF(2) matrices moved there
+        plain = dataclasses.replace(t, crc_matrix=host.crc_matrix.to(dev),
+                                    bch_matrix=host.bch_matrix.to(dev))
+        ts = torch.from_numpy(np.stack([np.concatenate(
+            [np.zeros(187, np.uint8),
+             synthetic_ts(t.fresh, seed=SEED + i)]) for i in range(blocks)
+        ])).to(dev)
+        got = bb_bch(t, ts)
+        want = bb_bch_plain(plain, ts)
+        torch.cuda.synchronize()
+        err = int((got.int() - want.int()).abs().max())
+        require(err == 0, f"{name}: BB/BCH kernel differs from its twin")
+        frames = got.shape[0]
+        ms = cuda_ms(lambda: bb_bch(t, ts))
+        plain_ms = cuda_ms(lambda: bb_bch_plain(plain, ts))
+        # the windows read once, a byte a bit written; the CRC and BCH
+        # walks are integer work under the bytes
+        bound_ms, by = bound(ts.numel() + frames * t.nbch, 0.0)
+        print(f"bb_bch {name} F={frames} ({blocks} block(s)): bit-exact, "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"({plain_ms / ms:.2f}x); bound {bound_ms:.4f} ms ({by}), "
+              f"share of bound {bound_ms / ms:.3f}")
+        times[key] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=by, library_ms=None)
+    return times
+
+
 def tail_phase(torch, dev, rng) -> dict:
     """The fused OFDM tail kernel against its plain twin on the same grids
     and P1: P1 bit for bit, the rest above TAIL_DB; the timed shapes
@@ -434,6 +486,12 @@ def golden_phase(torch, dev) -> None:
         require(snr > IQ_GOLDEN_DB, f"{name}: IQ {snr:.2f} dB")
 
 
+def kernel_counts(fec, tail) -> dict:
+    """Launch counts of the kernels: ``fec`` of the BB/BCH and of the LDPC
+    kernel (each once a PLP a step), ``tail`` of the tail kernel."""
+    return {"bb_bch": fec, "ldpc_parity": fec, "ifft_gi": tail}
+
+
 def reset_launches() -> None:
     from dvbt2ll_tpu_torch.ops import kernel_wrappers
     for f in kernel_wrappers().values():
@@ -490,7 +548,7 @@ def full_width_phase(torch, dev, name: str, steps: int) -> dict:
     require(np.array_equal(state["carries"][0], ts[-1][-187:]),
             f"{name}: carry")
     require(tx.counters.frames == (1 + steps) * BATCH, f"{name}: counters")
-    want = {"ldpc_parity": 1 + steps, "ifft_gi": (1 + steps) * planar}
+    want = kernel_counts(1 + steps, (1 + steps) * planar)
     require(counts == want, f"{name}: launches {counts} in {1 + steps} "
             f"steps, expected {want}")
     rate = samples / dt / 1e6
@@ -510,11 +568,12 @@ def matrix_config(case):
 def matrix_case(torch, dev, case) -> dict:
     """One MATRIX case at its test batch, on ``dev`` against the port on
     the CPU, through ``Transmitter.step_device``: a step's FEC bits equal
-    exactly, its IQ is above IQ_CPU_DB, and it launches ``ldpc_parity``
-    once and ``ifft_gi`` once on the planar tail, never on the complex
-    one.  With ``steps`` > 1 each step has its own Transmitter, built with
-    ``start_phases`` = the previous plan's ``bb.next_phase`` and resumed
-    from the previous one's checkpoint, on either device.  Returns the
+    exactly, its IQ is above IQ_CPU_DB, and it launches ``bb_bch`` and
+    ``ldpc_parity`` once and ``ifft_gi`` once on the planar tail, never
+    on the complex one.  With ``steps`` > 1 each step has its own
+    Transmitter, built with ``start_phases`` = the previous plan's
+    ``bb.next_phase`` and resumed from the previous one's checkpoint, on
+    either device.  Returns the
     tail, the lowest SNR, the launches summed over the steps and the
     steps' time on the host clock, fenced."""
     from dvbt2ll_tpu_torch import Transmitter, synthetic_ts
@@ -525,7 +584,7 @@ def matrix_case(torch, dev, case) -> dict:
     kw = dict(strict=False, allow_phase_drift=True)
     tx = ref = ts = None
     pos, phase, snrs, dt = 0, 0, [], 0.0
-    total = {"ldpc_parity": 0, "ifft_gi": 0}
+    total = kernel_counts(0, 0)
     for k in range(steps):
         states = None if tx is None else (tx.state_dict(), ref.state_dict())
         tx = Transmitter(cfg, b, start_phases=phase, device=dev, **kw)
@@ -549,7 +608,7 @@ def matrix_case(torch, dev, case) -> dict:
         torch.cuda.synchronize()
         dt += time.perf_counter() - t0
         counts = launches()
-        require(counts == {"ldpc_parity": 1, "ifft_gi": int(planar)},
+        require(counts == kernel_counts(1, int(planar)),
                 f"{case['id']} step {k}: launches {counts}")
         total = {key: total[key] + counts[key] for key in total}
         got = iq.cpu().numpy().reshape(b, -1).view(np.complex64)
@@ -610,7 +669,7 @@ def matrix_full_width(torch, dev, case) -> dict:
             and state["steps_done"] == 2, f"{name}: frame counter")
     require(np.array_equal(state["carries"][0], ts[-187:]), f"{name}: carry")
     require(tx.counters.frames == 2 * b, f"{name}: counters")
-    require(counts == {"ldpc_parity": 2, "ifft_gi": 2 * int(planar)},
+    require(counts == kernel_counts(2, 2 * int(planar)),
             f"{name}: launches {counts} in 2 steps")
     return dict(batch=b, launches=counts, ms=ms,
                 rate=b * cfg.samples_per_frame / ms[1] / 1e3)
@@ -621,8 +680,8 @@ def matrix_phase(torch, dev) -> dict:
     (``matrix_case``), then at full width (``matrix_full_width``); one
     line a case.  Returns the launches of each part, summed."""
     t_start = time.perf_counter()
-    paths = {"matrix": {"ldpc_parity": 0, "ifft_gi": 0},
-             "matrix_full_width": {"ldpc_parity": 0, "ifft_gi": 0}}
+    paths = {"matrix": kernel_counts(0, 0),
+             "matrix_full_width": kernel_counts(0, 0)}
     for case in MATRIX:
         got = matrix_case(torch, dev, case)
         wide = matrix_full_width(torch, dev, case)
@@ -699,8 +758,8 @@ def multiplp_phase(torch, dev) -> dict:
             "multiplp: state_dict card != CPU")
     require(np.array_equal(sa["carries"], np.stack(carries)),
             "multiplp: carries")
-    require(counts == {"ldpc_parity": len(ns) * MPLP_STEPS,
-                       "ifft_gi": MPLP_STEPS},
+    require(counts == kernel_counts(len(ns) * MPLP_STEPS,
+                                    MPLP_STEPS),
             f"multiplp: launches {counts} in {MPLP_STEPS} steps of "
             f"{len(ns)} PLPs")
     fefs = sum(g.size for g in got) - MPLP_STEPS * b * cfg.samples_per_frame
@@ -792,8 +851,7 @@ def executor_phase(torch, dev) -> dict:
     require(len(sink.chunks) == RUNTIME_STEPS, "executor: sink writes")
     require(stats["sync_errors"] == 0 and tx.counters.sync_errors == 0,
             f"executor: sync errors {stats} {tx.counters}")
-    require(counts == {"ldpc_parity": RUNTIME_STEPS,
-                       "ifft_gi": RUNTIME_STEPS},
+    require(counts == kernel_counts(RUNTIME_STEPS, RUNTIME_STEPS),
             f"executor: launches {counts} in {RUNTIME_STEPS} steps")
     print(f"executor vv009 batch {b}, {RUNTIME_STEPS} strict steps from a "
           f"pipe through the native ingest ring: every returned array "
@@ -843,7 +901,7 @@ def paced_phase(torch, dev, tmp: str) -> dict:
     require(written == want and os.path.getsize(path) == 8 * want,
             f"paced: sink {written} samples, file {os.path.getsize(path)} "
             f"bytes, expected {want} samples")
-    require(counts == {"ldpc_parity": steps, "ifft_gi": steps},
+    require(counts == kernel_counts(steps, steps),
             f"paced: launches {counts} in {steps} steps")
     print(f"paced vv009 batch {b}: {steps} steps of {step_t:.4f} s air "
           f"({steps * step_t:.2f} s) in {wall:.4f} s, lag {lag:.4f} s "
@@ -933,7 +991,7 @@ def rate_phase(torch, dev, name: str, batch: int, strict: bool,
         label = "stream"
     else:
         label = "stream_window (phase 7)"
-    want = {"ldpc_parity": RATE_STEPS * len(ns), "ifft_gi": RATE_STEPS}
+    want = kernel_counts(RATE_STEPS * len(ns), RATE_STEPS)
     require(counts == want, f"rate {name}: launches {counts}, expected {want}")
     print(f"executor {name} batch {batch}: {RATE_STEPS} steps, "
           f"{emitted} samples emitted in {dt:.4f} s = {ex_rate:.2f} "
@@ -1005,8 +1063,8 @@ def sharded_phase(torch, slots, label: str) -> tuple:
     counts = launches()
     blocks = SHARD_MUX * SHARD_FRAME
     # a card's blocks are one batched call: each kernel once a card a step
-    want = {"ldpc_parity": len(devices) * SHARD_STEPS,
-            "ifft_gi": len(devices) * SHARD_STEPS}
+    want = kernel_counts(len(devices) * SHARD_STEPS,
+                         len(devices) * SHARD_STEPS)
     require(counts == want, f"{label}: launches {counts} in {SHARD_STEPS} "
             f"steps of {blocks} blocks on {len(devices)} card(s), expected "
             f"{want}")
@@ -1116,7 +1174,7 @@ def multimux_phase(torch, dev, tmp: str) -> dict:
     sync(torch, [dev])
     counts = {"multimux": launches()}
     # each group's blocks on the card are one batched call
-    want = {"ldpc_parity": 2 * (1 + 1), "ifft_gi": 2 * 1}
+    want = kernel_counts(2 * (1 + 1), 2 * 1)
     require(counts["multimux"] == want, f"multimux: launches "
             f"{counts['multimux']} in 2 steps, expected {want}")
 
@@ -1134,8 +1192,8 @@ def multimux_phase(torch, dev, tmp: str) -> dict:
         counts[name] = launches()
         same_blocks(torch, out1[i], r1, f"{name} step 1")
         same_blocks(torch, out2[i], r2, f"{name} step 2")
-    require(counts["multimux_vv009"] == {"ldpc_parity": 2, "ifft_gi": 2}
-            and counts["multimux_32k"] == {"ldpc_parity": 2, "ifft_gi": 0},
+    require(counts["multimux_vv009"] == kernel_counts(2, 2)
+            and counts["multimux_32k"] == kernel_counts(2, 0),
             f"multimux channels: launches {counts}")
 
     mm2 = MultiMuxTransmitter(specs, devices=slots)
@@ -1172,7 +1230,7 @@ def symbol_sharded_phase(torch, slots) -> dict:
         [np.zeros(187, np.uint8),
          synthetic_ts(plan.ts_bytes_in, seed=SEED + 900)])).to(dev)
     tp = plan_tensors(plan, dev, False)
-    counts = {"ldpc_parity": 0, "ifft_gi": 0}
+    counts = kernel_counts(0, 0)
     for idx in (0, 1):
         sync(torch, slots)
         reset_launches()
@@ -1185,7 +1243,7 @@ def symbol_sharded_phase(torch, slots) -> dict:
         require(torch.equal(got, transmit_step_iq(tp, padded, idx)),
                 f"symbol-sharded 32k_extended over {cards} differs from "
                 f"transmit_step_iq at frame index {idx}")
-    require(counts == {"ldpc_parity": 2, "ifft_gi": 0},
+    require(counts == kernel_counts(2, 0),
             f"symbol-sharded: launches {counts}")
 
     def per_call(call) -> float:
@@ -1343,8 +1401,8 @@ def compiled_path(torch, dev, name: str, batch, strict: bool) -> dict:
                                     COMPILED_CHECK + 1 + COMPILED_STEPS)
     step = tx._compiled
     planar = select_step_iq(cfg)[1]
-    want = {"ldpc_parity": COMPILED_STEPS * len(ns),
-            "ifft_gi": COMPILED_STEPS * planar}
+    want = kernel_counts(COMPILED_STEPS * len(ns),
+                         COMPILED_STEPS * planar)
     require(counts == want, f"{label}: launches {counts} under replay, "
             f"expected {want}")
     # the card's time: a replay, the eager step on the same static inputs,
@@ -1429,7 +1487,7 @@ def compiled_sharded(torch, dev) -> dict:
     ms, counts = timed(stx.step_device, first)
     eager_ms, _ = timed(eager_step, first + 1 + SHARD_STEPS)
     blocks = SHARD_MUX * SHARD_FRAME
-    require(counts == {"ldpc_parity": SHARD_STEPS, "ifft_gi": SHARD_STEPS},
+    require(counts == kernel_counts(SHARD_STEPS, SHARD_STEPS),
             f"compiled sharded: launches {counts} in {SHARD_STEPS} steps")
     samples = SHARD_MUX * stx.frames_per_step * cfg.samples_per_frame
     steps = list(stx._steps.values())
@@ -1556,14 +1614,13 @@ def bench_and_latency(card: str) -> dict:
     require({"metric", "value", "unit", "vs_baseline"} <= b.keys()
             and b["device"] == card and b["value"] > 0
             and b["step_device_msamples_s"] > 0, f"bench: {b}")
-    require(b["launches"] == {"ldpc_parity": BENCH_STEPS,
-                              "ifft_gi": BENCH_STEPS},
+    require(b["launches"] == kernel_counts(BENCH_STEPS, BENCH_STEPS),
             f"bench: launches {b['launches']}")
 
     lats = run_tool(["dvbt2ll_tpu_torch.tools.bench_latency"], card)
     require([r["config"] for r in lats] == list(CONFIGS),
             f"bench_latency: {[r['config'] for r in lats]}")
-    total = {"ldpc_parity": 0, "ifft_gi": 0}
+    total = kernel_counts(0, 0)
     for r in lats:
         cfg = named_config(r["config"])
         calls = r["iters"] + r["calls"]
@@ -1614,8 +1671,8 @@ def tools_phase(torch, tail_times: dict) -> dict:
                 and r["ingest"]["sync_errors"] == 0
                 and r["ingest"]["null_stuffed"] == 0,
                 f"bench_sustained {role}: {r}")
-        require(r["launches"] == {"ldpc_parity": r["steps"],
-                                  "ifft_gi": r["steps"]},
+        require(r["launches"] == kernel_counts(r["steps"],
+                                               r["steps"]),
                 f"bench_sustained {role}: launches {r['launches']} in "
                 f"{r['steps']} steps")
         if role != "device":
@@ -1636,11 +1693,11 @@ def tools_phase(torch, tail_times: dict) -> dict:
                      parts], card)
     require(s["copy_audit"]["peer_copies"] == 0,
             f"bench_scaling: copy audit {s['copy_audit']}")
-    total = {"ldpc_parity": 0, "ifft_gi": 0}
+    total = kernel_counts(0, 0)
     for row in s["strong"]:
         # the slots of one card are one batched call: once a step
         n = s["steps"]
-        require(row["launches"] == {"ldpc_parity": n, "ifft_gi": n},
+        require(row["launches"] == kernel_counts(n, n),
                 f"bench_scaling: {row}")
         total = {k: total[k] + row["launches"][k] for k in total}
     paths["tool_scaling_strong"] = total
@@ -1680,6 +1737,7 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     ldpc_times = ldpc_phase(torch, dev, rng)
+    bb_bch_times = bb_bch_phase(torch, dev)
     tail_times = tail_phase(torch, dev, rng)
     golden_phase(torch, dev)
     matrix_paths = matrix_phase(torch, dev)
@@ -1740,6 +1798,10 @@ def main() -> int:
           f"{time.perf_counter() - start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": [
+        row("bb_bch", "dvbt2ll_tpu_torch/csrc/bb_bch.cu",
+            "none: the JAX package's stage is XLA ops, its CRC-8 and BCH "
+            "GF(2) matrix products (dvbt2ll_tpu/pipeline.py bb_and_fec)",
+            bb_bch_times),
         row("ldpc_parity", "dvbt2ll_tpu_torch/csrc/ldpc_parity.cu",
             "dvbt2ll_tpu/ops/ldpc_pallas.py:61", ldpc_times,
             also_replaces="dvbt2ll_tpu/ops/ldpc_pallas.py:137"),

@@ -16,6 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .ops.fec import BbBch, bb_bch_tables
 from .ops.ifft import N1, TailTables, tail_tables
 from .ops.ldpc import LdpcSchedule, ldpc_schedule
 
@@ -25,12 +26,10 @@ class PlpTensors:
     """One PLP's device constants, beside its host ``PlpPlan``."""
 
     pp: object                      # host PlpPlan
-    headers_b: torch.Tensor         # (F, 10) u8, packed BB headers
-    crc_matrix: torch.Tensor        # (1496, 8) f32, packet CRC-8 over GF(2)
-    scramble_b: torch.Tensor        # (kbch / 8,) u8, packed BB scrambler
-    bch_matrix: torch.Tensor        # (kbch, bch parity) f32
+    # BB framing, CRC-8, scrambling and BCH (ops/fec.py): the kernel's
+    # tables, and the twin's GF(2) matrices on a CPU device only
+    fec: BbBch
     mapper_perm: torch.Tensor       # (cell_size, mod) i64 bit interleave
-    inband_b: Optional[torch.Tensor]  # packed in-band field, or None
     ldpc: LdpcSchedule
 
 
@@ -84,18 +83,9 @@ def _plp_tensors(pp, device) -> PlpTensors:
     cfg = pp.cfg
     return PlpTensors(
         pp=pp,
-        headers_b=_t(np.packbits(np.asarray(pp.headers, np.uint8), axis=1),
-                     np.uint8, device),
-        crc_matrix=_t(pp.crc_matrix, np.float32, device),
-        scramble_b=_t(np.packbits(np.asarray(pp.scramble, np.uint8)),
-                      np.uint8, device),
-        bch_matrix=_t(pp.bch_matrix, np.float32, device),
+        fec=bb_bch_tables(pp, device),
         mapper_perm=_t(np.asarray(pp.mapper_perm).reshape(
             cfg.cell_size, cfg.mod_bits), np.int64, device),
-        inband_b=(None if pp.bb.inband_bits is None
-                  else _t(np.packbits(np.asarray(pp.bb.inband_bits,
-                                                 np.uint8)),
-                          np.uint8, device)),
         ldpc=ldpc_schedule(pp.ldpc_cols, cfg.nbch, cfg.ldpc_parity_bits,
                            cfg.q_ldpc, device),
     )

@@ -112,6 +112,8 @@ def library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.dvbt2ll_ldpc_codeword.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
     lib.dvbt2ll_ldpc_codeword.restype = i32
+    lib.dvbt2ll_bb_bch.argtypes = [ptr] * 7 + [i32] * 10 + [ptr]
+    lib.dvbt2ll_bb_bch.restype = i32
     lib.dvbt2ll_ofdm_tail.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.dvbt2ll_ofdm_tail.restype = i32
     lib.dvbt2ll_stage_mark.argtypes = [i32, ptr]

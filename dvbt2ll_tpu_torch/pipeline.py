@@ -7,9 +7,10 @@ and the plan's constants come as device tensors that
 its compiled step instead).  Two OFDM tails, chosen by ``select_step_iq``:
 the planar one (1K-8K FFTs with a guard interval of whole 128-sample
 rows) and the complex one (``torch.fft``, every other geometry: 16K, 32K
-and odd guard intervals).  On a CUDA tensor the LDPC parity and the
-planar tail run the hand-written kernels of ``ops/ldpc.py`` and
-``ops/ifft.py``; a CPU tensor takes their plain twins.  ``Transmitter``
+and odd guard intervals).  On a CUDA tensor the BB framing with BCH,
+the LDPC parity and the planar tail run the hand-written kernels of
+``ops/fec.py``, ``ops/ldpc.py`` and ``ops/ifft.py``; a CPU tensor takes
+their plain twins.  ``Transmitter``
 runs its step through ``compiled.CompiledStep`` as its one block: on a
 CUDA device a captured CUDA graph replayed every step, the counterpart of
 the JAX step's ``jax.jit``.
@@ -36,22 +37,14 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ._bits import gf2_matmul, packbits, unpackbits
 from .compiled import CompiledStep
 from .config import T2Config
 from .convert import PlanTensors, PlpTensors, plan_tensors
 from .observability import TxCounters, check_ts_sync, mark, span
+from .ops.fec import bb_bch
 from .ops.ifft import ifft_gi, set_full_fp32_matmul, supported
 from .ops.ldpc import ldpc_codeword
 from .plan import build_plan, min_batch_frames
-
-
-def _pad_to(x: torch.Tensor, n: int) -> torch.Tensor:
-    """Zero-pad the last axis of x at its end to length n."""
-    if x.shape[-1] > n:
-        raise ValueError(f"{x.shape[-1]} bytes do not fit in {n}")
-    return torch.cat([x, x.new_zeros(*x.shape[:-1], n - x.shape[-1])],
-                     dim=-1)
 
 
 def bb_and_fec(pt: PlpTensors, ts_padded: torch.Tensor) -> torch.Tensor:
@@ -60,69 +53,15 @@ def bb_and_fec(pt: PlpTensors, ts_padded: torch.Tensor) -> torch.Tensor:
     ``ts_padded`` is one window (187 carry + fresh,) or a (blocks, 187 +
     fresh) stack of them, one a block (the rows of the JAX step's
     ``jax.vmap``); a window is one block.  The blocks' FEC frames come out
-    block by block, as one batch for the LDPC kernel.  BB framing stays in
-    the byte domain: the TS -> data-field map is affine, so it is
-    reshapes and slices.  NORMAL mode replaces each sync byte with the
-    CRC-8 of the packet before it (a GF(2) product), HIEFF drops the sync
-    column, in-band frames carry the static in-band field.  Then
-    scrambling, BCH (a GF(2) product) and the LDPC codeword (one kernel on
-    the card writes info bits and parity)."""
-    pp = pt.pp
-    cfg = pp.cfg
-    bb = pp.bb
-    f, p = pp.fec_frames, pp.n_packets
+    block by block, as one batch for the LDPC kernel.  Two calls, each a
+    hand-written kernel on the card and its plain twin on the CPU:
+    ``ops.fec.bb_bch`` (BB framing, NORMAL mode's packet CRC-8 in place of
+    each sync byte, HIEFF's sync bytes dropped, the in-band field,
+    scrambling and BCH) writes each frame's nbch info bits and parity, and
+    ``ops.ldpc.ldpc_codeword`` the codeword after them.  Only the twin
+    reads ``pt.fec``'s GF(2) matrices, which a CPU device alone holds."""
     ts = ts_padded.reshape(-1, ts_padded.shape[-1])    # (blocks, 187 + fresh)
-    blocks = ts.shape[0]
-    nfresh = ts.shape[1] - 187
-
-    if bb.hieff:
-        stream_b = ts[:, 187:].reshape(blocks, p, 188)[:, :, 1:].reshape(
-            blocks, -1)
-    elif p == 0:
-        # no sync slot in the window: the payload passes unmodified
-        stream_b = ts[:, 187:]
-    else:
-        # o = fresh-stream index of the first sync slot; sync slot i sits
-        # at fresh byte o + 188 i and its CRC covers the 187 bytes before
-        # it: the carry window's tail for i = 0, packet row i - 1 after
-        o = bb.sync_offset
-        aligned = _pad_to(ts[:, 187 + o:], p * 188).reshape(blocks, p, 188)
-        pkt_b = torch.cat([ts[:, None, o:o + 187], aligned[:, :-1, 1:]],
-                          dim=1)                           # (blocks, p, 187)
-        crc = gf2_matmul(unpackbits(pkt_b.reshape(blocks * p, 187), dim=1),
-                         pt.crc_matrix)
-        groups = torch.cat([packbits(crc, dim=1).reshape(blocks, p, 1),
-                            aligned[:, :, 1:]], dim=2).reshape(blocks, -1)
-        if o:
-            stream_b = torch.cat([ts[:, 187:187 + o], groups],
-                                 dim=1)[:, :nfresh]
-        else:
-            stream_b = groups[:, :nfresh]
-
-    kbch_b = cfg.kbch // 8
-    d_bytes = kbch_b - 10
-    if not bb.inband:
-        df = stream_b.reshape(blocks, f, d_bytes)
-        kb_bytes = torch.cat([pt.headers_b.expand(blocks, -1, -1), df], dim=2)
-    else:
-        # first frame of each fec_blocks group: 13 fewer payload bytes,
-        # then the 104-bit in-band field
-        k = cfg.fec_blocks
-        b = blocks * (f // k)                  # the groups of every block
-        groups = stream_b.reshape(b, k * d_bytes - 13)
-        hdrs = pt.headers_b.reshape(1, f // k, k, 10).expand(
-            blocks, -1, -1, -1).reshape(b, k, 10)
-        ib = pt.inband_b[None, :].expand(b, -1)
-        kb0 = torch.cat([hdrs[:, 0], groups[:, :d_bytes - 13], ib], dim=1)
-        rest = groups[:, d_bytes - 13:].reshape(b, k - 1, d_bytes)
-        kbr = torch.cat([hdrs[:, 1:], rest], dim=2)
-        kb_bytes = torch.cat([kb0[:, None], kbr], dim=1)
-
-    kbch_bits = unpackbits(kb_bytes.reshape(blocks * f, kbch_b)
-                           ^ pt.scramble_b, dim=1)   # (blocks * F, kbch)
-    bch_par = gf2_matmul(kbch_bits, pt.bch_matrix)
-    nbch_bits = torch.cat([kbch_bits, bch_par], dim=1)   # (blocks * F, nbch)
-    return ldpc_codeword(pt.ldpc, nbch_bits)
+    return ldpc_codeword(pt.ldpc, bb_bch(pt.fec, ts))
 
 
 def map_cells_planes(pt: PlpTensors, frame_bits: torch.Tensor):

@@ -24,6 +24,7 @@ from dvbt2ll_tpu_torch.config import (CodeRate, FrameSize, InputMode,
 from dvbt2ll_tpu_torch.tables.ldpc import qc_entries
 from dvbt2ll_tpu_torch.executor import _HostCopy
 from dvbt2ll_tpu_torch.ops import ifft
+from dvbt2ll_tpu_torch.ops.fec import bb_bch, bb_bch_tables
 from dvbt2ll_tpu_torch.ops.ldpc import (ldpc_codeword, ldpc_codeword_plain,
                                         ldpc_schedule)
 from dvbt2ll_tpu_torch.pipeline import bb_and_fec, select_step_iq
@@ -73,6 +74,93 @@ def test_kernel_matches_plain_every_table(cuda, frame_size, rate, frames):
     torch.cuda.synchronize()
     assert got.shape == (frames, cfg.ldpc_frame_bits) and got.is_contiguous()
     assert torch.equal(got, ldpc_codeword_plain(sched, bits))
+
+
+def _fec_windows(t, blocks, seed, corrupt):
+    """``blocks`` random windows of a PLP, a sync byte at every packet
+    start (or, with ``corrupt``, none set)."""
+    ts = np.random.default_rng(seed).integers(
+        0, 256, (blocks, 187 + t.fresh), dtype=np.uint8)
+    if not corrupt:
+        ts[:, 187 + (0 if t.hieff else t.sync_offset)::188] = 0x47
+    return torch.from_numpy(ts)
+
+
+def _bb_bch_vs_twin(cuda, pp, blocks, seed, **replace):
+    """The BB/BCH kernel on ``blocks`` card windows of a PLP against the
+    twin on the same windows on the CPU, valid and corrupted sync bytes;
+    ``replace`` overrides fields of both sides' tables."""
+    import dataclasses
+    dev = dataclasses.replace(bb_bch_tables(pp, cuda), **replace)
+    cpu = dataclasses.replace(bb_bch_tables(pp, "cpu"), **replace)
+    for corrupt in (False, True):
+        ts = _fec_windows(cpu, blocks, seed, corrupt)
+        before = bb_bch.launches
+        got = bb_bch(dev, ts.to(cuda))
+        assert bb_bch.launches == before + 1
+        torch.cuda.synchronize()
+        assert got.shape == (blocks * pp.fec_frames, pp.cfg.nbch)
+        assert torch.equal(got.cpu(), bb_bch(cpu, ts)), corrupt
+
+
+@pytest.mark.parametrize("blocks", [1, 16])
+@pytest.mark.parametrize("name", _ON_CARD)
+def test_bb_bch_kernel_matches_twin(cuda, name, blocks):
+    """Every PLP of every named config at two frames (HIEFF: its smallest
+    batch), one block and 16."""
+    cfg = named_config(name)
+    batch = (min_batch_frames(cfg) if cfg.input_mode == InputMode.HIEFF
+             else 2)
+    for i, pp in enumerate(build_plan(cfg, batch, strict=False).plps):
+        _bb_bch_vs_twin(cuda, pp, blocks, seed=60 + i)
+
+
+_FEC_PLANS = {
+    # BASELINE config 5's shape (16 blocks: 6016 frames) and one block of
+    # it, 376 frames: a block of 8 frames at the grid's end
+    "vv009_47": (lambda: build_plan(vv009_config(), 47, strict=False), 16),
+    # NORMAL mode with the first sync slot inside the window
+    "normal_nonzero_offset": (lambda: _matrix_plan("normal_drift", 1), 3),
+    "inband_nonzero_offset": (lambda: _matrix_plan("inband_stream", 1), 3),
+}
+
+
+def _matrix_plan(case_id, steps_in):
+    """A MATRIX case's plan at its test batch, at the TS phase its
+    streaming run reaches after ``steps_in`` steps."""
+    case = {c["id"]: c for c in chip_smoke.MATRIX}[case_id]
+    cfg = chip_smoke.matrix_config(case)
+    phase = 0
+    for _ in range(steps_in):
+        phase = build_plan(cfg, case["batch"], strict=False,
+                           start_phases=phase).plps[0].bb.next_phase
+    return build_plan(cfg, case["batch"], strict=False, start_phases=phase)
+
+
+@pytest.mark.parametrize("case", list(_FEC_PLANS))
+def test_bb_bch_kernel_offsets_and_no_packets(cuda, case):
+    """Plans no named config gives: a nonzero sync offset, the full
+    config-5 width, and (built by hand) a window with no sync slot."""
+    make, blocks = _FEC_PLANS[case]
+    pp = make().plps[0]
+    assert (pp.bb.sync_offset != 0) == case.endswith("nonzero_offset")
+    for b in (1, blocks):
+        _bb_bch_vs_twin(cuda, pp, b, seed=70 + b)
+    _bb_bch_vs_twin(cuda, pp, blocks, seed=80, packets=0)
+
+
+def test_bb_bch_kernel_refuses_what_it_does_not_take(cuda):
+    pp = build_plan(vv009_config(), 2, strict=False).plps[0]
+    t = bb_bch_tables(pp, cuda)
+    ts = _fec_windows(t, 2, 0, False).to(cuda)
+    before = bb_bch.launches
+    for bad in (ts.to(torch.int16), ts[0], ts[:, 1:], ts[:, ::2],
+                ts.t().contiguous()):
+        with pytest.raises(ValueError):
+            bb_bch(t, bad)
+    with pytest.raises(ValueError):
+        bb_bch(bb_bch_tables(pp, "cpu"), ts)     # tables on the CPU
+    assert bb_bch.launches == before
 
 
 def _snr_db(ref, x):
@@ -182,8 +270,9 @@ def test_tail_refuses_tf32(cuda):
 def test_transmitter_on_card_matches_cpu(cuda, name):
     """Two frames (HIEFF: its smallest batch of whole packets): FEC bits
     equal, IQ above 120 dB (the kernels and cuFFT sum in another order
-    than the CPU), the LDPC kernel launched once per PLP a step, the tail
-    kernel once a step on the planar tail and never on the complex one."""
+    than the CPU), the BB/BCH and LDPC kernels launched once per PLP a
+    step, the tail kernel once a step on the planar tail and never on the
+    complex one."""
     cfg = named_config(name)
     batch = (min_batch_frames(cfg) if cfg.input_mode == InputMode.HIEFF
              else 2)
@@ -195,11 +284,10 @@ def test_transmitter_on_card_matches_cpu(cuda, name):
         w = torch.from_numpy(np.concatenate([np.zeros(187, np.uint8), ts]))
         assert torch.equal(bb_and_fec(pt, w.to(cuda)).cpu(),
                            bb_and_fec(pr, w))
-    ldpc_before = ldpc_codeword.launches
-    tail_before = ifft.ifft_gi.launches
+    before = _launches()
     got = tx(streams if len(streams) > 1 else streams[0])
-    assert ldpc_codeword.launches == ldpc_before + len(streams)
-    assert ifft.ifft_gi.launches == tail_before + select_step_iq(cfg)[1]
+    assert _launches() == _added(before, len(streams),
+                                 select_step_iq(cfg)[1])
     want = ref(streams if len(streams) > 1 else streams[0])
     assert got.shape == want.shape
     snr = _snr_db(want, got)
@@ -249,7 +337,14 @@ def test_executor_output_survives_allocator_reuse(cuda):
 
 
 def _launches():
-    return ldpc_codeword.launches, ifft.ifft_gi.launches
+    """(BB/BCH, LDPC, tail) kernel launches so far."""
+    return bb_bch.launches, ldpc_codeword.launches, ifft.ifft_gi.launches
+
+
+def _added(before, fec, tail):
+    """``before`` plus ``fec`` launches of both FEC kernels (BB/BCH and
+    LDPC, once each a PLP a call) and ``tail`` of the tail kernel."""
+    return before[0] + fec, before[1] + fec, before[2] + tail
 
 
 def _drift_sharded(cfg, slots, n_mux):
@@ -270,7 +365,7 @@ def _sharded_vs_sequential(slots):
     before = _launches()
     out = stx.step_device(ts)
     cards = len(set(slots))
-    assert _launches() == (before[0] + cards, before[1] + cards)
+    assert _launches() == _added(before, cards, cards)
     for c in range(2):
         tx = Transmitter(cfg, 1, strict=False, allow_phase_drift=True,
                          device=stx.mesh.devices[c, 0])
@@ -289,7 +384,8 @@ def test_sharded_equals_sequential_on_four_slots(cuda):
 def test_sharded_launches_each_kernel_once_a_card(cuda):
     """4 muxes over a (2, 2) mesh of one card: 2 muxes a block row, 8
     blocks a step as one batched call, so each kernel launches once a
-    step, every step."""
+    step, every step: the BB/BCH kernel once a PLP a card a step, as
+    the LDPC kernel, and the tail once."""
     stx = _drift_sharded(vv009_config(), [cuda] * 4, 4)
     for step in range(2):
         ts = np.stack([synthetic_ts(stx.bytes_per_step_per_mux,
@@ -297,7 +393,7 @@ def test_sharded_launches_each_kernel_once_a_card(cuda):
                        for c in range(4)])
         before = _launches()
         stx.step_device(ts)
-        assert _launches() == (before[0] + 1, before[1] + 1), step
+        assert _launches() == _added(before, 1, 1), step
 
 
 def test_sharded_over_two_cards(cuda):
@@ -323,7 +419,7 @@ def test_hetero_multimux_on_card(cuda):
           synthetic_ts(nb, seed=32)[None]]
     before = _launches()
     out = mm.step_device(ts)
-    assert _launches() == (before[0] + 2, before[1] + 1)
+    assert _launches() == _added(before, 2, 1)
     refs = [_drift_sharded(cfg_a, [cuda] * 4, 2),
             ShardedTransmitter(cfg_b, make_mesh([cuda] * 2), **drift)]
     for got, ref, t in zip(out, refs, ts):
@@ -346,7 +442,7 @@ def _symbol_sharded_vs_eager(slots, graphs):
     for idx in (0, 1):
         before = _launches()
         got = fn(padded, idx)
-        assert _launches() == (before[0] + 1, before[1])
+        assert _launches() == _added(before, 1, 0)
         assert got.device == dev
         assert torch.equal(got, fn.eager(padded, idx)), idx
         assert torch.equal(got, transmit_step_iq(
@@ -378,7 +474,7 @@ def test_bench_on_card(cuda):
     r = bench.run(8, 3, "vv009_4kshort", cuda)
     assert r["device"] == card_line()
     assert r["value"] > 0 and r["step_device_msamples_s"] > 0
-    assert r["launches"] == {"ldpc_parity": 3, "ifft_gi": 3}
+    assert r["launches"] == {"bb_bch": 3, "ldpc_parity": 3, "ifft_gi": 3}
 
 
 def test_bench_latency_on_card(cuda):
@@ -386,7 +482,7 @@ def test_bench_latency_on_card(cuda):
     r = bench_latency.measure("vv009_4kshort", cuda, iters=3, calls=4)
     assert 0 < r["per_call_ms_median"] <= r["per_call_ms_max"]
     assert r["frame_latency_ms"] > 0
-    assert r["launches"] == {"ldpc_parity": 7, "ifft_gi": 7}
+    assert r["launches"] == {"bb_bch": 7, "ldpc_parity": 7, "ifft_gi": 7}
 
 
 def test_roofline_tail_bound_under_the_kernel_time(cuda):
@@ -416,7 +512,8 @@ def test_config_matrix_on_card_matches_cpu(cuda, case):
     got = chip_smoke.matrix_case(torch, cuda, case)
     planar = select_step_iq(chip_smoke.matrix_config(case))[1]
     assert got["tail"] == ("planar" if planar else "complex")
-    assert got["launches"] == {"ldpc_parity": case["steps"],
+    assert got["launches"] == {"bb_bch": case["steps"],
+                               "ldpc_parity": case["steps"],
                                "ifft_gi": case["steps"] * planar}
     assert got["snr"] > 120
 
@@ -454,6 +551,21 @@ def test_ldpc_launcher_captured_in_a_graph(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, ldpc_codeword_plain(sched, bits))
+
+
+def test_bb_bch_launcher_captured_in_a_graph(cuda):
+    """The BB/BCH launcher's launch replays on new windows: their bits,
+    bit for bit against the twin."""
+    pp = build_plan(vv009_config(), 47, strict=False).plps[0]
+    t, ref = bb_bch_tables(pp, cuda), bb_bch_tables(pp, "cpu")
+    ts = _fec_windows(t, 3, 90, False).to(cuda)
+    graph, out = _capture(lambda: bb_bch(t, ts))
+    for seed in (91, 92):
+        new = _fec_windows(t, 3, seed, False)
+        ts.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), bb_bch(ref, new))
 
 
 def test_tail_launcher_captured_in_a_graph(cuda):
@@ -524,8 +636,8 @@ def test_compiled_step_equals_eager(cuda, name, batch, strict):
     before = _launches()
     got = [tx.step_window(ws if len(ws) > 1 else ws[0]) for ws, _ in steps]
     n = len(steps) * len(tx.plan.plps)
-    assert _launches() == (before[0] + n,
-                           before[1] + len(steps) * select_step_iq(cfg)[1])
+    assert _launches() == _added(before, n,
+                                 len(steps) * select_step_iq(cfg)[1])
     assert tx.state_dict()["frame_idx"] == (
         len(steps) * batch % cfg.t2_frames)
     for k, ((ws, idx), g) in enumerate(zip(steps, got)):
@@ -600,7 +712,7 @@ def test_sixteen_compiled_slots_of_one_card(cuda):
         carries = ts[:, -187:]
         before = _launches()
         out = stx.step_device(ts)
-        assert _launches() == (before[0] + 1, before[1] + 1)
+        assert _launches() == _added(before, 1, 1)
         for c in range(8):
             for s in range(2):
                 idx = (k * 94 + 47 * s) % cfg.t2_frames
@@ -635,8 +747,7 @@ def test_batched_step_equals_one_block_calls(cuda, name, batch, blocks,
     before = _launches()
     out = tx._step_fn(tx.tensors, ws if len(ws) > 1 else ws[0],
                       torch.tensor(idx, device=cuda))
-    assert _launches() == (before[0] + len(ws),
-                           before[1] + select_step_iq(cfg)[1])
+    assert _launches() == _added(before, len(ws), select_step_iq(cfg)[1])
     assert out.shape == (blocks, batch, cfg.samples_per_frame, 2)
     for i in range(blocks):
         one = [w[i] for w in ws]
