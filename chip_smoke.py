@@ -10,14 +10,16 @@ imports no JAX.  Phases, each of which raises on failure:
    the CUDA kernels from ``dvbt2ll_tpu_torch/csrc`` (one nvcc a source,
    in parallel) with what ptxas reports;
 2. the LDPC codeword kernel against its plain torch twin, on the card,
-   bit for bit, and the parity against the numpy oracle, on the vv009
-   table (2048 frames, one batch-256 step; 6016 frames, one step of
-   BASELINE config 5's 16 blocks batched) and the 8k_normal table (512
-   frames), timed beside its plain twin and its bound;
+   bit for bit, and the parity of the first and last frames against the
+   numpy oracle, on the vv009 table (2048 frames, one batch-256 step;
+   6016 frames, one step of BASELINE config 5's 16 blocks batched), the
+   8k_normal table (512 frames) and the uk_t2_32k table (9494 frames,
+   its 47-frame step), timed beside its plain twin and its bound;
 2b. the BB/BCH kernel (BB framing, packet CRC-8, scrambling, BCH)
    against its plain twin on the card, bit for bit, on vv009 and
-   8k_normal windows at batch 256 and config 5's 16 blocks of 47 vv009
-   frames (6016 frames), timed beside its plain twin and its bound;
+   8k_normal windows at batch 256, config 5's 16 blocks of 47 vv009
+   frames (6016 frames) and uk_t2_32k's 47-frame window (9494 frames of
+   kbch 43040), timed beside its plain twin and its bound;
 3. the fused OFDM tail kernel (P1, then each symbol's 4-step IFFT and
    guard interval as final I/Q) against its plain twin on the same grids
    and P1: P1 bit for bit, the rest above 120 dB SNR, at vv009 and
@@ -153,16 +155,21 @@ GOLDENS = ("vv009_4kshort", "8k_normal", "hieff_4k", "inband_2k",
 # BASELINE config 5 on one card: 16 blocks of 47 vv009 frames, one batch
 # of 752 frames a step (each kernel launched once a step)
 CONFIG5_FRAMES = 16 * 47
+# the UK DVB-T2 HD mux's strict step: 47 frames of 202 FEC blocks
+UK_FRAMES = 47
 # (key, config, LDPC frames): vv009 at batch 256 (8 a T2 frame), 8k_normal,
-# and vv009 at config 5's batch
+# vv009 at config 5's batch, and the UK mux's step (9494 frames)
 LDPC_CASES = (("vv009_4kshort", "vv009_4kshort", 8 * BATCH),
               ("8k_normal", "8k_normal", 512),
-              ("config5", "vv009_4kshort", 8 * CONFIG5_FRAMES))
+              ("config5", "vv009_4kshort", 8 * CONFIG5_FRAMES),
+              ("uk_t2_32k", "uk_t2_32k", 202 * UK_FRAMES))
 # (key, config, batch, blocks) of the BB/BCH kernel's checks: vv009 and
-# 8k_normal at batch 256, and config 5's 16 blocks of 47 vv009 frames
+# 8k_normal at batch 256, config 5's 16 blocks of 47 vv009 frames, and the
+# UK mux's step
 BB_BCH_CASES = (("vv009_4kshort", "vv009_4kshort", BATCH, 1),
                 ("8k_normal", "8k_normal", BATCH, 1),
-                ("config5", "vv009_4kshort", 47, 16))
+                ("config5", "vv009_4kshort", 47, 16),
+                ("uk_t2_32k", "uk_t2_32k", UK_FRAMES, 1))
 TAIL_DB = 120.0        # tail kernel vs its twin: both float32, sums reordered
 # ((B, S), fft, gi, key when timed): vv009 and 8k_normal at batch 256 and
 # vv009 at config 5's batch, then the other planar geometries for
@@ -486,10 +493,12 @@ def golden_phase(torch, dev) -> None:
         require(snr > IQ_GOLDEN_DB, f"{name}: IQ {snr:.2f} dB")
 
 
-def kernel_counts(fec, tail) -> dict:
+def kernel_counts(fec, tail, fft=0) -> dict:
     """Launch counts of the kernels: ``fec`` of the BB/BCH and of the LDPC
-    kernel (each once a PLP a step), ``tail`` of the tail kernel."""
-    return {"bb_bch": fec, "ldpc_parity": fec, "ifft_gi": tail}
+    kernel (each once a PLP a step), ``tail`` of the planar tail kernel,
+    ``fft`` of the complex tail's transform (once a step, or a slab)."""
+    return {"bb_bch": fec, "ldpc_parity": fec, "ifft_gi": tail,
+            "fft_tail": fft}
 
 
 def reset_launches() -> None:
@@ -548,7 +557,8 @@ def full_width_phase(torch, dev, name: str, steps: int) -> dict:
     require(np.array_equal(state["carries"][0], ts[-1][-187:]),
             f"{name}: carry")
     require(tx.counters.frames == (1 + steps) * BATCH, f"{name}: counters")
-    want = kernel_counts(1 + steps, (1 + steps) * planar)
+    want = kernel_counts(1 + steps, (1 + steps) * planar,
+                         (1 + steps) * (not planar))
     require(counts == want, f"{name}: launches {counts} in {1 + steps} "
             f"steps, expected {want}")
     rate = samples / dt / 1e6
@@ -608,7 +618,7 @@ def matrix_case(torch, dev, case) -> dict:
         torch.cuda.synchronize()
         dt += time.perf_counter() - t0
         counts = launches()
-        require(counts == kernel_counts(1, int(planar)),
+        require(counts == kernel_counts(1, int(planar), int(not planar)),
                 f"{case['id']} step {k}: launches {counts}")
         total = {key: total[key] + counts[key] for key in total}
         got = iq.cpu().numpy().reshape(b, -1).view(np.complex64)
@@ -669,7 +679,8 @@ def matrix_full_width(torch, dev, case) -> dict:
             and state["steps_done"] == 2, f"{name}: frame counter")
     require(np.array_equal(state["carries"][0], ts[-187:]), f"{name}: carry")
     require(tx.counters.frames == 2 * b, f"{name}: counters")
-    require(counts == kernel_counts(2, 2 * int(planar)),
+    require(counts == kernel_counts(2, 2 * int(planar),
+                                    2 * int(not planar)),
             f"{name}: launches {counts} in 2 steps")
     return dict(batch=b, launches=counts, ms=ms,
                 rate=b * cfg.samples_per_frame / ms[1] / 1e3)
@@ -1174,7 +1185,7 @@ def multimux_phase(torch, dev, tmp: str) -> dict:
     sync(torch, [dev])
     counts = {"multimux": launches()}
     # each group's blocks on the card are one batched call
-    want = kernel_counts(2 * (1 + 1), 2 * 1)
+    want = kernel_counts(2 * (1 + 1), 2 * 1, 2 * 1)
     require(counts["multimux"] == want, f"multimux: launches "
             f"{counts['multimux']} in 2 steps, expected {want}")
 
@@ -1193,7 +1204,7 @@ def multimux_phase(torch, dev, tmp: str) -> dict:
         same_blocks(torch, out1[i], r1, f"{name} step 1")
         same_blocks(torch, out2[i], r2, f"{name} step 2")
     require(counts["multimux_vv009"] == kernel_counts(2, 2)
-            and counts["multimux_32k"] == kernel_counts(2, 0),
+            and counts["multimux_32k"] == kernel_counts(2, 0, 2),
             f"multimux channels: launches {counts}")
 
     mm2 = MultiMuxTransmitter(specs, devices=slots)
@@ -1243,7 +1254,7 @@ def symbol_sharded_phase(torch, slots) -> dict:
         require(torch.equal(got, transmit_step_iq(tp, padded, idx)),
                 f"symbol-sharded 32k_extended over {cards} differs from "
                 f"transmit_step_iq at frame index {idx}")
-    require(counts == kernel_counts(2, 0),
+    require(counts == kernel_counts(2, 0, 2 * len(slots)),
             f"symbol-sharded: launches {counts}")
 
     def per_call(call) -> float:
@@ -1402,7 +1413,8 @@ def compiled_path(torch, dev, name: str, batch, strict: bool) -> dict:
     step = tx._compiled
     planar = select_step_iq(cfg)[1]
     want = kernel_counts(COMPILED_STEPS * len(ns),
-                         COMPILED_STEPS * planar)
+                         COMPILED_STEPS * planar,
+                         COMPILED_STEPS * (not planar))
     require(counts == want, f"{label}: launches {counts} under replay, "
             f"expected {want}")
     # the card's time: a replay, the eager step on the same static inputs,
@@ -1629,7 +1641,8 @@ def bench_and_latency(card: str) -> dict:
                 and 0 < r["per_call_ms_median"] <= r["per_call_ms_max"]
                 and r["launches"]["ldpc_parity"]
                 == calls * len(cfg.plp_configs)
-                and (planar or r["launches"]["ifft_gi"] == 0),
+                and (planar or r["launches"]["ifft_gi"] == 0)
+                and r["launches"]["fft_tail"] == calls * (not planar),
                 f"bench_latency {r['config']}: {r}")
         total = {k: total[k] + r["launches"][k] for k in total}
     return {"tool_bench": b["launches"], "tool_latency": total}

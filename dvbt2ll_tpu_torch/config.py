@@ -1047,7 +1047,7 @@ NAMED_CONFIGS = (
     "8k_miso_tx1", "8k_miso_tx2", "16k_l1qpsk_both", "1k_pp4",
     "qpsk_short_c13", "ti_off_4k", "t2lite_4k", "t2lite_8k_t2gi_miso",
     "t2lite_16k_t2gi", "v121_4k", "multiplp_fef", "eq_2k_5mhz",
-    "32k_papr_tr")
+    "32k_papr_tr", "uk_t2_32k")
 
 
 def named_config(name: str) -> T2Config:
@@ -1055,7 +1055,19 @@ def named_config(name: str) -> T2Config:
     for value.  The BASELINE.json matrix (vv009_4kshort, 8k_normal,
     32k_extended, multiplp_fef) plus one config per reference work-loop
     branch with a reference-binary golden in ``tests/golden_ref``; see
-    ``bench.py`` for what each one pins."""
+    ``bench.py`` for what each one pins.  ``uk_t2_32k``, the port's own,
+    is not in ``bench.py``: the UK DVB-T2 HD multiplex (Freeview HD), from
+    EBU Tech 3348 (Frequency and Network Planning Aspects of DVB-T2) and
+    ETSI TS 102 831 (DVB-T2 implementation guidelines): 8 MHz, 32K
+    extended carriers, GI 1/128, PP7, 256QAM rotated, CR 2/3, 64800-bit
+    LDPC, one PLP.  Assumed, as the sources leave them open: 59 data
+    symbols (with P2, 60 symbols, 216.944 ms a frame, under 250 ms); 202
+    FEC blocks, the most such a frame holds (978 dummy cells); NORMAL
+    input mode, 40.0 Mbit/s of TS (the published 40.2 Mbit/s is that
+    times 188/187, High Efficiency Mode's rate); 3 TI blocks of 67, 67
+    and 68 FEC blocks (68 x 8100 cells fit the 2^19 + 2^15 of one PLP's
+    TI memory, 2 blocks would not); 2 T2 frames a superframe; every other
+    field the default."""
     if name == "vv009_4kshort":
         return vv009_config()
     if name == "8k_normal":
@@ -1210,4 +1222,12 @@ def named_config(name: str) -> T2Config:
             pilot_pattern=PilotPattern.PP7, carrier_mode=CarrierMode.EXTENDED,
             papr=PAPR.TR, fec_blocks=4, ti_blocks=2, t2_frames=2,
             num_data_symbols=4).validate()
+    if name == "uk_t2_32k":
+        return T2Config(
+            frame_size=FrameSize.NORMAL, code_rate=CodeRate.C2_3,
+            constellation=Constellation.QAM256, rotation=Rotation.ON,
+            fft_size=FFTSize.FFT_32K, guard_interval=GuardInterval.GI_1_128,
+            pilot_pattern=PilotPattern.PP7, carrier_mode=CarrierMode.EXTENDED,
+            fec_blocks=202, ti_blocks=3, t2_frames=2, num_data_symbols=59,
+            bandwidth=Bandwidth.BW_8_0_MHZ).validate()
     raise ValueError(f"unknown config {name!r}; known: {NAMED_CONFIGS}")

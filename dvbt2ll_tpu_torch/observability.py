@@ -48,8 +48,11 @@ log = logging.getLogger("dvbt2ll_tpu_torch")
 RING_RECORDS = 1 << 17
 RANGE_PREFIX = "tx:"
 # the boundaries of a transmit step that ``mark`` names, in step order
-# (``fec`` and ``map`` once a PLP); csrc/stage_mark.cu has a kernel each
-STAGES = ("start", "fec", "map", "frames", "tail")
+# (``fec`` and ``map`` once a PLP) but for ``ifft``, the last added: on the
+# complex tail alone, between ``frames`` and ``tail``, after the transform
+# and before the guard interval and P1 copies; csrc/stage_mark.cu has a
+# kernel each, in this order
+STAGES = ("start", "fec", "map", "frames", "tail", "ifft")
 
 
 @dataclasses.dataclass

@@ -6,7 +6,9 @@ the einsum form the JAX package ships as its default,
 ``dvbt2ll_tpu/ops/ifft_pallas.py:70-98``), the P1 concat and the I/Q
 stack.  The kernel replaces the Pallas TPU kernel ``ifft_gi_pallas``
 (``ifft_pallas.py:181``) and that epilogue; see its source for what bounds
-it on the card and what its design does about it.
+it on the card and what its design does about it.  The complex tail's
+transform (16K, 32K and odd guard intervals) is ``fft_tail``: cuFFT through
+``torch.fft``, counted like a kernel.
 
 With N = N1 * N2 (N1 = 128), input element [b, s, k2, k1] holds carrier
 bin N2 * k1 + k2 (the frame builder's gather emits this layout), so both
@@ -214,3 +216,19 @@ def ifft_gi(grids_re_t: torch.Tensor, grids_im_t: torch.Tensor,
 
 
 ifft_gi.launches = 0
+
+
+def fft_tail(grids: torch.Tensor, scale: float) -> torch.Tensor:
+    """The complex tail's transform: (..., fft) complex64 grids -> their
+    inverse DFT over the last axis times ``scale`` (``torch.fft.ifft``:
+    cuFFT on a card, pocketfft or MKL on the CPU).  ``fft_tail.launches``
+    counts the calls on a CUDA tensor, a slab each in the symbol-sharded
+    back-end (under a CUDA graph, ``compiled.CompiledStep`` counts the
+    replays'); the guard interval and P1 copies after it are not its."""
+    out = torch.fft.ifft(grids, dim=-1) * scale
+    if grids.is_cuda:
+        fft_tail.launches += 1
+    return out
+
+
+fft_tail.launches = 0

@@ -26,8 +26,9 @@ frames, so each kernel launches once a PLP for all of them.
 While the port's tracing is on, the step functions put a device stage
 mark (``observability.mark``) at their entry (``start``), after each
 PLP's ``bb_and_fec`` (``fec``) and mapper (``map``), after the frame
-grids (``frames``) and after the OFDM tail (``tail``); a step captured
-with tracing off holds none.
+grids (``frames``), on the complex tail after its transform (``ifft``),
+and after the OFDM tail (``tail``); a step captured with tracing off
+holds none.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ from .config import T2Config
 from .convert import PlanTensors, PlpTensors, plan_tensors
 from .observability import TxCounters, check_ts_sync, mark, span
 from .ops.fec import bb_bch
-from .ops.ifft import ifft_gi, set_full_fp32_matmul, supported
+from .ops.ifft import fft_tail, ifft_gi, set_full_fp32_matmul, supported
 from .ops.ldpc import ldpc_codeword
 from .plan import build_plan, min_batch_frames
 
@@ -222,8 +223,9 @@ def build_frames(tp: PlanTensors, payload: torch.Tensor,
 def symbols_with_gi(cfg: T2Config, grids: torch.Tensor,
                     eq: Optional[torch.Tensor]) -> torch.Tensor:
     """(B, S, fft) grids -> (B, S, fft + gi) c64: the optional inverse
-    sinc ``eq``, the IFFT scaled by fft * ofdm_normalization, and the
-    guard interval as a copy of each symbol's last gi samples.  A slab of
+    sinc ``eq``, the IFFT scaled by fft * ofdm_normalization
+    (``ops.ifft.fft_tail``, then the stage mark ``ifft``), and the guard
+    interval as a copy of each symbol's last gi samples.  A slab of
     the symbol axis (``parallel.grids_symbol_sharded``) runs the same
     operations; whether its bits equal the whole's depends on the FFT
     library's plan for the batch (on the CPU, MKL splits one 32K
@@ -233,7 +235,8 @@ def symbols_with_gi(cfg: T2Config, grids: torch.Tensor,
     gi = cfg.guard_samples
     if eq is not None:
         grids = grids * eq
-    sym = torch.fft.ifft(grids, dim=-1) * (fft * cfg.ofdm_normalization)
+    sym = fft_tail(grids, fft * cfg.ofdm_normalization)
+    mark("ifft", sym)
     return torch.cat([sym[..., fft - gi:], sym], dim=-1)
 
 

@@ -474,7 +474,8 @@ def test_bench_on_card(cuda):
     r = bench.run(8, 3, "vv009_4kshort", cuda)
     assert r["device"] == card_line()
     assert r["value"] > 0 and r["step_device_msamples_s"] > 0
-    assert r["launches"] == {"bb_bch": 3, "ldpc_parity": 3, "ifft_gi": 3}
+    assert r["launches"] == {"bb_bch": 3, "ldpc_parity": 3, "ifft_gi": 3,
+                             "fft_tail": 0}
 
 
 def test_bench_latency_on_card(cuda):
@@ -482,7 +483,8 @@ def test_bench_latency_on_card(cuda):
     r = bench_latency.measure("vv009_4kshort", cuda, iters=3, calls=4)
     assert 0 < r["per_call_ms_median"] <= r["per_call_ms_max"]
     assert r["frame_latency_ms"] > 0
-    assert r["launches"] == {"bb_bch": 7, "ldpc_parity": 7, "ifft_gi": 7}
+    assert r["launches"] == {"bb_bch": 7, "ldpc_parity": 7, "ifft_gi": 7,
+                             "fft_tail": 0}
 
 
 def test_roofline_tail_bound_under_the_kernel_time(cuda):
@@ -507,14 +509,16 @@ def test_config_matrix_on_card_matches_cpu(cuda, case):
     """Every case of the JAX package's config matrix at its test batch
     (``chip_smoke.matrix_case``): FEC bits equal the port on the CPU,
     IQ above 120 dB, ``ldpc_parity`` once a step and ``ifft_gi`` once a
-    step on the planar tail only; the streaming cases one Transmitter a
-    step with ``start_phases``, resumed from a checkpoint."""
+    step on the planar tail only, ``fft_tail`` on the complex one; the
+    streaming cases one Transmitter a step with ``start_phases``, resumed
+    from a checkpoint."""
     got = chip_smoke.matrix_case(torch, cuda, case)
     planar = select_step_iq(chip_smoke.matrix_config(case))[1]
     assert got["tail"] == ("planar" if planar else "complex")
     assert got["launches"] == {"bb_bch": case["steps"],
                                "ldpc_parity": case["steps"],
-                               "ifft_gi": case["steps"] * planar}
+                               "ifft_gi": case["steps"] * planar,
+                               "fft_tail": case["steps"] * (not planar)}
     assert got["snr"] > 120
 
 
@@ -811,13 +815,14 @@ def _traced_transmitter(cuda, name, trace: bool):
                                   else streams[0])
 
 
-_MARKED = ["vv009_4kshort", "multiplp_fef", "32k_extended"]
+_MARKED = ["vv009_4kshort", "multiplp_fef", "32k_extended", "uk_t2_32k"]
 
 
 @pytest.mark.parametrize("name", _MARKED)
 def test_capture_with_tracing_on_holds_the_stage_marks(cuda, name):
     """A step captured while tracing is on (planar tail, two PLPs, the
-    complex tail) replays one mark a boundary, in step order, in every
+    complex tail, the UK mux's 47-frame 32K step) replays one mark a
+    boundary, in step order (``ifft`` on the complex tail only), in every
     replay, whether or not tracing is still on; one captured while it is
     off replays the same kernels, as many times each, and no mark."""
     from collections import Counter
@@ -829,8 +834,9 @@ def test_capture_with_tracing_on_holds_the_stage_marks(cuda, name):
     off = _device_kernels(_traced_transmitter(cuda, name, False), 3)
     marks = [n[len("dvbt2ll_mark_"):] for n in on
              if n.startswith("dvbt2ll_mark_")]
+    planar = select_step_iq(named_config(name))[1]
     one = (["start"] + ["fec", "map"] * named_config(name).num_plp
-           + ["frames", "tail"])
+           + ["frames"] + ["ifft"] * (not planar) + ["tail"])
     assert marks == one * 3
     assert not [n for n in off if "dvbt2ll_mark_" in n]
     assert Counter(n for n in on if not n.startswith("dvbt2ll_mark_")) \
@@ -910,3 +916,45 @@ def test_tracing_turned_on_between_steps_loses_no_step(cuda):
     done = sorted(r.step for r in observability.records()
                   if r.name == "executor.copy_done")
     assert done == [1, 2, 3]
+
+
+def test_uk_mux_step_through_the_graph_matches_the_reference(cuda):
+    """The UK DVB-T2 HD mux at its smallest strict step, 47 frames of 32K
+    with 202 FEC blocks each (9494 FEC frames a launch): two steps through
+    the captured graph, the complex tail's transform counted once a
+    replay, and frame 0 of the first step and frame 37 of the second
+    (an odd frame, the other L1-post dynamic part) against the
+    benchmark's plain reference within its output check's 1e-5."""
+    from txbench.reference.config import T2Config as RefConfig
+    from txbench.reference.frames import rel_err, t2_frame
+    from txbench.traffic.ts import rng, ts_packets
+    cfg = named_config("uk_t2_32k")
+    tx = Transmitter(cfg, min_batch_frames(cfg), device=cuda)
+    assert tx._compiled._graph is not None
+    n = tx.bytes_per_step
+    ts = ts_packets(2 * n, rng(2**31 + 161, 1))
+    windows = [np.concatenate([np.zeros(187, np.uint8), ts[:n]]),
+               ts[n - 187:]]
+    before = ifft.fft_tail.launches
+    kept = [tx.step_window(w)[f].cpu().numpy() for w, f in zip(windows,
+                                                                 (0, 37))]
+    assert ifft.fft_tail.launches == before + 2
+    ref_cfg = RefConfig.from_dict(cfg.to_dict())
+    for g, iq in zip((0, 47 + 37), kept):
+        ref = t2_frame(ref_cfg, lambda a, b: ts[a:b], g)
+        assert rel_err(iq.reshape(-1).view(np.complex64), ref) <= 1e-5, g
+
+
+@pytest.mark.parametrize("name,per_step", [("uk_t2_32k", 1),
+                                           ("vv009_4kshort", 0)])
+def test_fft_tail_counter_reads_one_a_replay(cuda, name, per_step):
+    """``ops.ifft.fft_tail.launches``, registered in ``kernel_wrappers``:
+    one a replay of a complex-tail step, none on the planar tail."""
+    from dvbt2ll_tpu_torch.ops import kernel_wrappers
+    assert kernel_wrappers()["fft_tail"] is ifft.fft_tail
+    tx = Transmitter(named_config(name), 2, strict=False,
+                     allow_phase_drift=True, device=cuda)
+    before = ifft.fft_tail.launches
+    for k in range(3):
+        tx.step_device(synthetic_ts(tx.bytes_per_step, seed=170 + k))
+    assert ifft.fft_tail.launches == before + 3 * per_step

@@ -17,6 +17,7 @@ from dvbt2ll_tpu_torch import Transmitter, named_config, synthetic_ts
 from dvbt2ll_tpu_torch.config import NAMED_CONFIGS
 from dvbt2ll_tpu_torch.ops.ifft import supported
 from dvbt2ll_tpu_torch.pipeline import bb_and_fec, map_cells
+from tests.torch_compare import jax_named_config
 
 _DIR = os.path.join(os.path.dirname(__file__), "golden_ref")
 _NAMES = ["vv009_4kshort", "8k_normal", "hieff_4k", "inband_2k",
@@ -69,7 +70,8 @@ def bench():
 @pytest.mark.parametrize("name", NAMED_CONFIGS)
 def test_named_config_matches_bench(bench, name):
     assert (dataclasses.asdict(named_config(name))
-            == dataclasses.asdict(bench._named_config(name)))
+            == dataclasses.asdict(jax_named_config(bench._named_config,
+                                                   name)))
 
 
 def test_registry_is_whole():

@@ -3,6 +3,8 @@ spans off and on, the ring, the span trees of a ``StreamingExecutor``
 step and of a ``ShardedTransmitter`` step, and the counters.  The device
 parts (stage marks in a captured step, ``device_time_ns``) are card tests
 in ``tests/test_torch_cuda.py``."""
+import os
+import re
 import time
 
 import numpy as np
@@ -41,6 +43,39 @@ def test_off_span_is_the_shared_noop_and_records_nothing():
     obs.instant("c", 5)
     obs.mark("fec", torch.zeros(1))
     assert obs.records() == []
+
+
+def test_every_stage_has_its_mark_kernel_in_order():
+    """``STAGES`` and ``csrc/stage_mark.cu`` agree: a kernel
+    ``dvbt2ll_mark_<stage>`` a stage, launched for the stage's index; the
+    complex tail's ``ifft`` is the last added."""
+    src = open(os.path.join(os.path.dirname(obs.__file__), "csrc",
+                            "stage_mark.cu")).read()
+    cases = re.findall(r"case (\d+): dvbt2ll_mark_(\w+)<<<", src)
+    assert [(int(i), s) for i, s in cases] == list(enumerate(obs.STAGES))
+    kernels = re.findall(r"__global__ void dvbt2ll_mark_(\w+)\(\)", src)
+    assert kernels == list(obs.STAGES)
+    assert obs.STAGES[-1] == "ifft"
+
+
+def test_complex_tail_counts_no_launch_on_the_cpu():
+    """``ops.ifft.fft_tail``, the complex tail's transform, is a kernel
+    wrapper: the step of a 32K config counts no launch on the CPU, where
+    no kernel runs, and the transform is the one ``torch.fft`` gives."""
+    from dvbt2ll_tpu_torch import named_config
+    from dvbt2ll_tpu_torch.ops import ifft, kernel_wrappers
+    from dvbt2ll_tpu_torch.pipeline import symbols_with_gi
+    assert kernel_wrappers()["fft_tail"] is ifft.fft_tail
+    cfg = named_config("32k_extended")
+    g = torch.complex(*torch.randn(2, 1, 2, cfg.fft_points))
+    before = ifft.fft_tail.launches
+    obs.enable()
+    got = symbols_with_gi(cfg, g, None)
+    assert ifft.fft_tail.launches == before
+    scale = cfg.fft_points * cfg.ofdm_normalization
+    sym = torch.fft.ifft(g, dim=-1) * scale
+    gi = cfg.guard_samples
+    assert torch.equal(got, torch.cat([sym[..., -gi:], sym], dim=-1))
 
 
 def test_nested_spans_record_parent_step_and_ordered_times():

@@ -17,7 +17,7 @@ from dvbt2ll_tpu import config as jax_config
 from dvbt2ll_tpu.plan import build_plan as jax_build_plan
 from dvbt2ll_tpu_torch import config
 from dvbt2ll_tpu_torch.plan import build_plan, min_batch_frames
-from tests.torch_compare import properties, same
+from tests.torch_compare import jax_named_config, properties, same
 
 _ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
@@ -101,7 +101,7 @@ def test_plan_equals_the_jax_packages(name):
     plan of two frames (HIEFF: its smallest batch of whole packets) equal
     the JAX package's, field for field."""
     ours = config.named_config(name)
-    theirs = _bench()._named_config(name)
+    theirs = jax_named_config(_bench()._named_config, name)
     same(ours, theirs, name)
     props = properties(config.T2Config)
     assert props == properties(jax_config.T2Config)

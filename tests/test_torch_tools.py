@@ -28,7 +28,7 @@ from dvbt2ll_tpu_torch.ops.ifft import P1_LEN, tail_tables
 from dvbt2ll_tpu_torch.plan import build_plan
 from dvbt2ll_tpu_torch.tools import (bench_latency, bench_scaling,
                                      bench_sustained, roofline)
-from tests.torch_compare import same, snr_db
+from tests.torch_compare import jax_named_config, same, snr_db
 
 _ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 # the keys of tools/bench_sustained.py:190-207, and of its roles' sink
@@ -71,7 +71,7 @@ def _jax_tool(name):
 
 
 def _jax_cfg(name):
-    return _jax_tool("roofline")._named_config(name)
+    return jax_named_config(_jax_tool("roofline")._named_config, name)
 
 
 @pytest.mark.parametrize("name", NAMED_CONFIGS)
@@ -170,7 +170,8 @@ def test_bench_prints_bench_pys_fields(capsys):
     assert r["unit"] == "Msamples/s/chip" and r["device"] == "cpu"
     assert r["value"] > 0 and r["vs_baseline"] > 0
     assert r["step_device_msamples_s"] > 0
-    assert r["launches"] == {"bb_bch": 0, "ldpc_parity": 0, "ifft_gi": 0}
+    assert r["launches"] == {"bb_bch": 0, "ldpc_parity": 0, "ifft_gi": 0,
+                             "fft_tail": 0}
 
 
 def test_bench_latency_frame_duration_is_jaxs(capsys):

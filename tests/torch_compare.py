@@ -38,6 +38,22 @@ def same(a, b, where: str) -> None:
         assert type(a) is type(b) and a == b, (where, a, b)
 
 
+def jax_named_config(named, name: str):
+    """The JAX package's config of ``name`` from ``named``, its registry
+    (``bench.py``'s ``_named_config``); for a name of the port's registry
+    that ``bench.py`` lacks (it exits with "unknown config"), the JAX
+    package's ``T2Config`` read from the port's JSON document of that
+    name."""
+    try:
+        return named(name)
+    except SystemExit as e:
+        if not str(e).startswith("unknown config"):
+            raise
+    from dvbt2ll_tpu.config import T2Config
+    from dvbt2ll_tpu_torch.config import named_config
+    return T2Config.from_json(named_config(name).to_json())
+
+
 def properties(cls) -> list:
     """The public derived properties of a config class, by name."""
     return sorted(n for n in dir(cls) if not n.startswith("_")
