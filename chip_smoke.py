@@ -20,6 +20,12 @@ imports no JAX.  Phases, each of which raises on failure:
    8k_normal windows at batch 256, config 5's 16 blocks of 47 vv009
    frames (6016 frames) and uk_t2_32k's 47-frame window (9494 frames of
    kbch 43040), timed beside its plain twin and its bound;
+2c. the mapper kernel (bit interleave, Gray QAM levels, rotation, cyclic
+   Q delay) against its plain twin on the card, bit for bit, in both
+   layouts (the planar tail's two planes, the complex tail's complex64),
+   at vv009 and 8k_normal at batch 256, config 5's 6016 frames and the
+   UK mux's 9494 normal frames, timed beside its plain twin and its
+   bound;
 3. the fused OFDM tail kernel (P1, then each symbol's 4-step IFFT and
    guard interval as final I/Q) against its plain twin on the same grids
    and P1: P1 bit for bit, the rest above 120 dB SNR, at vv009 and
@@ -170,6 +176,13 @@ BB_BCH_CASES = (("vv009_4kshort", "vv009_4kshort", BATCH, 1),
                 ("8k_normal", "8k_normal", BATCH, 1),
                 ("config5", "vv009_4kshort", 47, 16),
                 ("uk_t2_32k", "uk_t2_32k", UK_FRAMES, 1))
+# (key, config, FEC frames) of the mapper kernel's checks: vv009 and
+# 8k_normal (64QAM unrotated, normal frames) at batch 256, config 5's
+# batch, and the UK mux's step
+QAM_CASES = (("vv009_4kshort", "vv009_4kshort", 8 * BATCH),
+             ("8k_normal", "8k_normal", 2 * BATCH),
+             ("config5", "vv009_4kshort", 8 * CONFIG5_FRAMES),
+             ("uk_t2_32k", "uk_t2_32k", 202 * UK_FRAMES))
 TAIL_DB = 120.0        # tail kernel vs its twin: both float32, sums reordered
 # ((B, S), fft, gi, key when timed): vv009 and 8k_normal at batch 256 and
 # vv009 at config 5's batch, then the other planar geometries for
@@ -418,6 +431,58 @@ def bb_bch_phase(torch, dev) -> dict:
     return times
 
 
+def qam_phase(torch, dev, rng) -> dict:
+    """The mapper kernel against its plain twin run on the card, on the
+    same codewords, bit for bit, in both layouts; timed, in the layout the
+    configuration's tail takes, beside its bound and the twin.  No PyTorch
+    call maps DVB-T2 cells, so there is no library time."""
+    import dataclasses
+    from dvbt2ll_tpu_torch import build_plan, named_config
+    from dvbt2ll_tpu_torch.ops.qam import qam_map, qam_map_plain, qam_tables
+    from dvbt2ll_tpu_torch.pipeline import select_step_iq
+    from dvbt2ll_tpu_torch.profile_step import cuda_ms
+    from dvbt2ll_tpu_torch.tools.roofline import bound
+    times = {}
+    for key, name, frames in QAM_CASES:
+        cfg = named_config(name)
+        pp = build_plan(cfg, 1, strict=False).plps[0]
+        t = qam_tables(pp, dev)
+        # the twin on the card: its int64 indices moved there
+        plain = dataclasses.replace(t, perm=qam_tables(pp, "cpu").perm.to(dev))
+        bits = torch.from_numpy(rng.integers(
+            0, 2, (frames, t.frame_bits), dtype=np.uint8)).to(dev)
+        re, im = qam_map(t, bits, planar=True)
+        cells = qam_map(t, bits, planar=False)
+        want_re, want_im = qam_map_plain(plain, bits)
+        torch.cuda.synchronize()
+        require(torch.equal(re, want_re) and torch.equal(im, want_im),
+                f"{name}: mapper kernel's planes differ from its twin")
+        require(torch.equal(cells, torch.complex(want_re, want_im)),
+                f"{name}: mapper kernel's complex cells differ from its twin")
+        planar = select_step_iq(cfg)[1]
+
+        def twin():
+            planes = qam_map_plain(plain, bits)
+            return planes if planar else torch.complex(*planes)
+
+        ms = cuda_ms(lambda: qam_map(t, bits, planar))
+        other_ms = cuda_ms(lambda: qam_map(t, bits, not planar))
+        plain_ms = cuda_ms(twin)
+        # each codeword bit a byte read once, each cell's 8 bytes written
+        # once; the levels and the rotation are a few operations a cell
+        bound_ms, by = bound(frames * (t.frame_bits + t.cells * 8), 0.0)
+        layout = "planar" if planar else "complex"
+        print(f"qam_map {name} F={frames}: bit-exact in both layouts, "
+              f"kernel ({layout}) {ms:.4f} ms, other layout "
+              f"{other_ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"({plain_ms / ms:.2f}x); bound {bound_ms:.4f} ms ({by}), "
+              f"share of bound {bound_ms / ms:.3f}")
+        times[key] = dict(err=0, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=by, library_ms=None,
+                          other_layout_ms=other_ms)
+    return times
+
+
 def tail_phase(torch, dev, rng) -> dict:
     """The fused OFDM tail kernel against its plain twin on the same grids
     and P1: P1 bit for bit, the rest above TAIL_DB; the timed shapes
@@ -494,11 +559,12 @@ def golden_phase(torch, dev) -> None:
 
 
 def kernel_counts(fec, tail, fft=0) -> dict:
-    """Launch counts of the kernels: ``fec`` of the BB/BCH and of the LDPC
-    kernel (each once a PLP a step), ``tail`` of the planar tail kernel,
-    ``fft`` of the complex tail's transform (once a step, or a slab)."""
-    return {"bb_bch": fec, "ldpc_parity": fec, "ifft_gi": tail,
-            "fft_tail": fft}
+    """Launch counts of the kernels: ``fec`` of the BB/BCH, the LDPC and
+    the mapper kernel (each once a PLP a step), ``tail`` of the planar
+    tail kernel, ``fft`` of the complex tail's transform (once a step, or
+    a slab)."""
+    return {"bb_bch": fec, "ldpc_parity": fec, "qam_map": fec,
+            "ifft_gi": tail, "fft_tail": fft}
 
 
 def reset_launches() -> None:
@@ -1640,7 +1706,7 @@ def bench_and_latency(card: str) -> dict:
         require(r["frame_duration_s"] == cfg.frame_duration
                 and 0 < r["per_call_ms_median"] <= r["per_call_ms_max"]
                 and r["launches"]["ldpc_parity"]
-                == calls * len(cfg.plp_configs)
+                == r["launches"]["qam_map"] == calls * len(cfg.plp_configs)
                 and (planar or r["launches"]["ifft_gi"] == 0)
                 and r["launches"]["fft_tail"] == calls * (not planar),
                 f"bench_latency {r['config']}: {r}")
@@ -1751,6 +1817,7 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     ldpc_times = ldpc_phase(torch, dev, rng)
     bb_bch_times = bb_bch_phase(torch, dev)
+    qam_times = qam_phase(torch, dev, rng)
     tail_times = tail_phase(torch, dev, rng)
     golden_phase(torch, dev)
     matrix_paths = matrix_phase(torch, dev)
@@ -1815,6 +1882,11 @@ def main() -> int:
             "none: the JAX package's stage is XLA ops, its CRC-8 and BCH "
             "GF(2) matrix products (dvbt2ll_tpu/pipeline.py bb_and_fec)",
             bb_bch_times),
+        row("qam_map", "dvbt2ll_tpu_torch/csrc/qam_map.cu",
+            "none: the JAX package's mapper is XLA ops "
+            "(dvbt2ll_tpu/pipeline.py map_cells_planes), which XLA fuses",
+            qam_times, **{f"{k}_uk_t2_32k": v for k, v in
+                          qam_times["uk_t2_32k"].items()}),
         row("ldpc_parity", "dvbt2ll_tpu_torch/csrc/ldpc_parity.cu",
             "dvbt2ll_tpu/ops/ldpc_pallas.py:61", ldpc_times,
             also_replaces="dvbt2ll_tpu/ops/ldpc_pallas.py:137"),

@@ -19,6 +19,7 @@ import torch
 from .ops.fec import BbBch, bb_bch_tables
 from .ops.ifft import N1, TailTables, tail_tables
 from .ops.ldpc import LdpcSchedule, ldpc_schedule
+from .ops.qam import QamMap, qam_tables
 
 
 @dataclasses.dataclass
@@ -29,8 +30,10 @@ class PlpTensors:
     # BB framing, CRC-8, scrambling and BCH (ops/fec.py): the kernel's
     # tables, and the twin's GF(2) matrices on a CPU device only
     fec: BbBch
-    mapper_perm: torch.Tensor       # (cell_size, mod) i64 bit interleave
     ldpc: LdpcSchedule
+    # bit interleave and QAM mapping (ops/qam.py): the kernel's u16 bit
+    # indices, and the twin's int64 ones on a CPU device only
+    qam: QamMap
 
 
 @dataclasses.dataclass
@@ -84,10 +87,9 @@ def _plp_tensors(pp, device) -> PlpTensors:
     return PlpTensors(
         pp=pp,
         fec=bb_bch_tables(pp, device),
-        mapper_perm=_t(np.asarray(pp.mapper_perm).reshape(
-            cfg.cell_size, cfg.mod_bits), np.int64, device),
         ldpc=ldpc_schedule(pp.ldpc_cols, cfg.nbch, cfg.ldpc_parity_bits,
                            cfg.q_ldpc, device),
+        qam=qam_tables(pp, device),
     )
 
 

@@ -9,5 +9,6 @@ def kernel_wrappers() -> dict:
     from .fec import bb_bch
     from .ifft import fft_tail, ifft_gi
     from .ldpc import ldpc_codeword
+    from .qam import qam_map
     return {"bb_bch": bb_bch, "ldpc_parity": ldpc_codeword,
-            "ifft_gi": ifft_gi, "fft_tail": fft_tail}
+            "qam_map": qam_map, "ifft_gi": ifft_gi, "fft_tail": fft_tail}

@@ -116,6 +116,11 @@ def library() -> ctypes.CDLL:
     lib.dvbt2ll_bb_bch.restype = i32
     lib.dvbt2ll_ofdm_tail.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.dvbt2ll_ofdm_tail.restype = i32
+    # floats as C floats: the kernel's constants rounded as torch rounds
+    # the twin's Python scalars against a float32 tensor
+    lib.dvbt2ll_qam_map.argtypes = ([ptr] * 4 + [i32] * 6
+                                    + [ctypes.c_float] * 3 + [i32, ptr])
+    lib.dvbt2ll_qam_map.restype = i32
     lib.dvbt2ll_stage_mark.argtypes = [i32, ptr]
     lib.dvbt2ll_stage_mark.restype = i32
     lib.dvbt2ll_error_string.argtypes = [i32]

@@ -8,9 +8,9 @@ its compiled step instead).  Two OFDM tails, chosen by ``select_step_iq``:
 the planar one (1K-8K FFTs with a guard interval of whole 128-sample
 rows) and the complex one (``torch.fft``, every other geometry: 16K, 32K
 and odd guard intervals).  On a CUDA tensor the BB framing with BCH,
-the LDPC parity and the planar tail run the hand-written kernels of
-``ops/fec.py``, ``ops/ldpc.py`` and ``ops/ifft.py``; a CPU tensor takes
-their plain twins.  ``Transmitter``
+the LDPC parity, the mapper and the planar tail run the hand-written
+kernels of ``ops/fec.py``, ``ops/ldpc.py``, ``ops/qam.py`` and
+``ops/ifft.py``; a CPU tensor takes their plain twins.  ``Transmitter``
 runs its step through ``compiled.CompiledStep`` as its one block: on a
 CUDA device a captured CUDA graph replayed every step, the counterpart of
 the JAX step's ``jax.jit``.
@@ -32,7 +32,6 @@ holds none.
 """
 from __future__ import annotations
 
-import math
 from typing import List, Optional
 
 import numpy as np
@@ -45,6 +44,7 @@ from .observability import TxCounters, check_ts_sync, mark, span
 from .ops.fec import bb_bch
 from .ops.ifft import fft_tail, ifft_gi, set_full_fp32_matmul, supported
 from .ops.ldpc import ldpc_codeword
+from .ops.qam import qam_map
 from .plan import build_plan, min_batch_frames
 
 
@@ -66,42 +66,18 @@ def bb_and_fec(pt: PlpTensors, ts_padded: torch.Tensor) -> torch.Tensor:
 
 
 def map_cells_planes(pt: PlpTensors, frame_bits: torch.Tensor):
-    """LDPC frames -> constellation cell planes ((F, cell), (F, cell)) f32.
-
-    One bit-interleave gather, then the closed form of the gray-coded
-    square QAM: per axis A = (2^h - 1) - 2 G, with G the packed prefix
-    XOR of the axis bits (EN 302 755 section 6.2), then rotation and the
-    cyclic Q delay of one cell.  F counts every LDPC frame of the call,
-    all blocks' (``bb_and_fec``); the delay rolls within each frame's
-    row."""
-    cfg = pt.pp.cfg
-    mod = cfg.mod_bits
-    h = mod // 2
-    cell_bits = frame_bits[:, pt.mapper_perm]                 # (F, CS, mod)
-
-    def axis_level(bv):  # (F, CS, h) u8 bits, most significant first
-        acc = bv[..., 0]
-        g = acc
-        for k in range(1, h):
-            acc = acc ^ bv[..., k]
-            g = (g << 1) | acc
-        return float((1 << h) - 1) - 2.0 * g.to(torch.float32)
-
-    norm = float(np.sqrt({2: 2.0, 4: 10.0, 6: 42.0, 8: 170.0}[mod]))
-    i_level = axis_level(cell_bits[..., 0::2]) * (1.0 / norm)
-    q_level = axis_level(cell_bits[..., 1::2]) * (1.0 / norm)
-    if cfg.rotation:
-        ang = math.radians(cfg.rotation_angle_deg)
-        cos_t, sin_t = math.cos(ang), math.sin(ang)
-        i_rot = i_level * cos_t - q_level * sin_t
-        q_rot = i_level * sin_t + q_level * cos_t
-        return i_rot, torch.roll(q_rot, 1, dims=1)
-    return i_level, q_level
+    """LDPC frames -> constellation cell planes ((F, cell), (F, cell)) f32:
+    the bit interleave, the Gray-coded square QAM, rotation and the cyclic
+    Q delay of one cell within each frame's row (``ops.qam.qam_map``, the
+    kernel on the card, its plain twin on the CPU).  F counts every LDPC
+    frame of the call, all blocks' (``bb_and_fec``)."""
+    return qam_map(pt.qam, frame_bits, planar=True)
 
 
 def map_cells(pt: PlpTensors, frame_bits: torch.Tensor) -> torch.Tensor:
-    """LDPC frames -> constellation cells (F, cell_size) complex64."""
-    return torch.complex(*map_cells_planes(pt, frame_bits))
+    """LDPC frames -> constellation cells (F, cell_size) complex64, as
+    ``map_cells_planes`` in one interleaved tensor."""
+    return qam_map(pt.qam, frame_bits, planar=False)
 
 
 def _as_windows(plan, ts_padded) -> List[torch.Tensor]:

@@ -8,6 +8,9 @@ machine without it:
 from ``tests``: where an installed package is named ``tests``, that name
 does not reach this directory.
 """
+import dataclasses
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -19,15 +22,17 @@ from dvbt2ll_tpu_torch import (MultiMuxTransmitter, MuxChannel,
                                halo_windows, make_mesh, min_batch_frames, named_config,
                                plan_tensors, synthetic_ts, transmit_step_iq,
                                vv009_config)
-from dvbt2ll_tpu_torch.config import (CodeRate, FrameSize, InputMode,
-                                      T2Config)
+from dvbt2ll_tpu_torch.config import (CodeRate, Constellation, FrameSize,
+                                      InputMode, Rotation, T2Config)
 from dvbt2ll_tpu_torch.tables.ldpc import qc_entries
 from dvbt2ll_tpu_torch.executor import _HostCopy
 from dvbt2ll_tpu_torch.ops import ifft
 from dvbt2ll_tpu_torch.ops.fec import bb_bch, bb_bch_tables
 from dvbt2ll_tpu_torch.ops.ldpc import (ldpc_codeword, ldpc_codeword_plain,
                                         ldpc_schedule)
+from dvbt2ll_tpu_torch.ops.qam import qam_map, qam_map_plain, qam_tables
 from dvbt2ll_tpu_torch.pipeline import bb_and_fec, select_step_iq
+from dvbt2ll_tpu_torch.tables.mapper import bit_permutation
 
 # every named config with a reference-binary golden (planar and complex
 # tail), and multi-PLP
@@ -474,8 +479,8 @@ def test_bench_on_card(cuda):
     r = bench.run(8, 3, "vv009_4kshort", cuda)
     assert r["device"] == card_line()
     assert r["value"] > 0 and r["step_device_msamples_s"] > 0
-    assert r["launches"] == {"bb_bch": 3, "ldpc_parity": 3, "ifft_gi": 3,
-                             "fft_tail": 0}
+    assert r["launches"] == {"bb_bch": 3, "ldpc_parity": 3, "qam_map": 3,
+                             "ifft_gi": 3, "fft_tail": 0}
 
 
 def test_bench_latency_on_card(cuda):
@@ -483,8 +488,8 @@ def test_bench_latency_on_card(cuda):
     r = bench_latency.measure("vv009_4kshort", cuda, iters=3, calls=4)
     assert 0 < r["per_call_ms_median"] <= r["per_call_ms_max"]
     assert r["frame_latency_ms"] > 0
-    assert r["launches"] == {"bb_bch": 7, "ldpc_parity": 7, "ifft_gi": 7,
-                             "fft_tail": 0}
+    assert r["launches"] == {"bb_bch": 7, "ldpc_parity": 7, "qam_map": 7,
+                             "ifft_gi": 7, "fft_tail": 0}
 
 
 def test_roofline_tail_bound_under_the_kernel_time(cuda):
@@ -509,7 +514,8 @@ def test_config_matrix_on_card_matches_cpu(cuda, case):
     """Every case of the JAX package's config matrix at its test batch
     (``chip_smoke.matrix_case``): FEC bits equal the port on the CPU,
     IQ above 120 dB, ``ldpc_parity`` once a step and ``ifft_gi`` once a
-    step on the planar tail only, ``fft_tail`` on the complex one; the
+    step on the planar tail only, ``fft_tail`` on the complex one,
+    ``qam_map`` once a step; the
     streaming cases one Transmitter a step with ``start_phases``, resumed
     from a checkpoint."""
     got = chip_smoke.matrix_case(torch, cuda, case)
@@ -517,6 +523,7 @@ def test_config_matrix_on_card_matches_cpu(cuda, case):
     assert got["tail"] == ("planar" if planar else "complex")
     assert got["launches"] == {"bb_bch": case["steps"],
                                "ldpc_parity": case["steps"],
+                               "qam_map": case["steps"],
                                "ifft_gi": case["steps"] * planar,
                                "fft_tail": case["steps"] * (not planar)}
     assert got["snr"] > 120
@@ -958,3 +965,107 @@ def test_fft_tail_counter_reads_one_a_replay(cuda, name, per_step):
     for k in range(3):
         tx.step_device(synthetic_ts(tx.bytes_per_step, seed=170 + k))
     assert ifft.fft_tail.launches == before + 3 * per_step
+
+
+# ------------------------------------------------------------- QAM mapper
+_QAM_MODES = [(fs, c, r) for fs in (FrameSize.SHORT, FrameSize.NORMAL)
+              for c in (Constellation.QPSK, Constellation.QAM16,
+                        Constellation.QAM64, Constellation.QAM256)
+              for r in (Rotation.OFF, Rotation.ON)]
+
+
+def _qam(cfg, dev):
+    """A PLP config's mapper tables on ``dev``, and the twin's: the same
+    with the CPU's int64 indices moved to ``dev``."""
+    pp = types.SimpleNamespace(cfg=cfg, mapper_perm=bit_permutation(cfg))
+    t = qam_tables(pp, dev)
+    return t, dataclasses.replace(t, perm=qam_tables(pp, "cpu").perm.to(dev))
+
+
+def _qam_check(t, plain, bits):
+    """Both layouts of the kernel against the twin on the card, bit for
+    bit, each call one launch; the rows' first and last cells (the Q
+    delay's wrap) checked on their own."""
+    before = qam_map.launches
+    re, im = qam_map(t, bits, planar=True)
+    assert qam_map.launches == before + 1
+    cells = qam_map(t, bits, planar=False)
+    assert qam_map.launches == before + 2
+    torch.cuda.synchronize()
+    want_re, want_im = qam_map_plain(plain, bits)
+    assert re.shape == im.shape == cells.shape == (bits.shape[0], t.cells)
+    assert cells.dtype == torch.complex64 and cells.is_contiguous()
+    for col in (0, -1):
+        assert torch.equal(im[:, col], want_im[:, col])
+        assert torch.equal(cells.imag[:, col], want_im[:, col])
+    assert torch.equal(re, want_re) and torch.equal(im, want_im)
+    assert torch.equal(cells, torch.complex(want_re, want_im))
+
+
+@pytest.mark.parametrize("frames", [1, 37])
+@pytest.mark.parametrize("frame_size,constellation,rotation", _QAM_MODES,
+                         ids=[f"{fs.name}-{c.name}-rot{int(r)}"
+                              for fs, c, r in _QAM_MODES])
+def test_qam_kernel_matches_plain_every_mode(cuda, frame_size,
+                                            constellation, rotation,
+                                            frames):
+    """Every frame size x modulation x rotation, one frame and an odd
+    count: the planar and the interleaved kernel bit for bit against the
+    twin."""
+    cfg = T2Config(frame_size=frame_size, constellation=constellation,
+                   rotation=rotation, code_rate=CodeRate.C2_3, fec_blocks=1,
+                   ti_blocks=1)
+    t, plain = _qam(cfg, cuda)
+    bits = torch.from_numpy(np.random.default_rng(frames).integers(
+        0, 2, (frames, t.frame_bits), dtype=np.uint8)).to(cuda)
+    _qam_check(t, plain, bits)
+
+
+@pytest.mark.parametrize("name,frames", [("uk_t2_32k", 202 * 47),
+                                         ("vv009_4kshort", 16 * 47 * 8)])
+def test_qam_kernel_matches_plain_at_the_cells_steps(cuda, name, frames):
+    """The closed-loop cells' batches: the UK mux's 9494 normal frames and
+    config 5's 6016 short ones, codewords from the LDPC kernel's range of
+    values."""
+    t, plain = _qam(named_config(name).plp_configs[0], cuda)
+    gen = torch.Generator(device=cuda).manual_seed(frames)
+    bits = torch.randint(0, 2, (frames, t.frame_bits), generator=gen,
+                         dtype=torch.uint8, device=cuda)
+    _qam_check(t, plain, bits)
+
+
+def test_qam_wrapper_refuses_and_launches_nothing(cuda):
+    cfg = named_config("vv009_4kshort")
+    t, _ = _qam(cfg, cuda)
+    host, _ = _qam(cfg, "cpu")
+    bits = torch.zeros((4, t.frame_bits), dtype=torch.uint8, device=cuda)
+    wide = torch.zeros((4, t.frame_bits + 8), dtype=torch.uint8, device=cuda)
+    before = qam_map.launches
+    bad = [(host, bits),                       # tables on the CPU
+           (t, bits.to(torch.int32)),          # dtype
+           (t, wide),                          # width
+           (t, wide[:, :t.frame_bits]),        # not contiguous
+           (t, bits[0])]                       # not 2-D
+    for tables, x in bad:
+        for planar in (True, False):
+            with pytest.raises(ValueError):
+                qam_map(tables, x, planar)
+    assert qam_map.launches == before
+
+
+@pytest.mark.parametrize("name,per_step", [("uk_t2_32k", 1),
+                                           ("vv009_4kshort", 1),
+                                           ("multiplp_fef", 2)])
+def test_qam_counter_reads_one_a_plp_a_replay(cuda, name, per_step):
+    """``ops.qam.qam_map.launches``, registered in ``kernel_wrappers``:
+    one a PLP a replay, the complex tail's interleaved form and the
+    planar tail's planes alike."""
+    from dvbt2ll_tpu_torch.ops import kernel_wrappers
+    assert kernel_wrappers()["qam_map"] is qam_map
+    tx = Transmitter(named_config(name), 2, strict=False,
+                     allow_phase_drift=True, device=cuda)
+    before = qam_map.launches
+    for k in range(3):
+        tx.step_device([synthetic_ts(n, seed=180 + k)
+                        for n in tx.bytes_per_step_per_plp])
+    assert qam_map.launches == before + 3 * per_step

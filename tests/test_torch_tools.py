@@ -170,8 +170,8 @@ def test_bench_prints_bench_pys_fields(capsys):
     assert r["unit"] == "Msamples/s/chip" and r["device"] == "cpu"
     assert r["value"] > 0 and r["vs_baseline"] > 0
     assert r["step_device_msamples_s"] > 0
-    assert r["launches"] == {"bb_bch": 0, "ldpc_parity": 0, "ifft_gi": 0,
-                             "fft_tail": 0}
+    assert r["launches"] == {"bb_bch": 0, "ldpc_parity": 0, "qam_map": 0,
+                             "ifft_gi": 0, "fft_tail": 0}
 
 
 def test_bench_latency_frame_duration_is_jaxs(capsys):
